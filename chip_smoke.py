@@ -6,10 +6,11 @@
 Phases, each printing its lines and its seconds:
 
 1. environment: the card, its power limit, torch and CUDA, and the build of
-   the CUDA kernels from dsen2_tpu_torch/csrc/ into build/kernels/;
+   the CUDA kernels from dsen2_tpu_torch/csrc/ into build/kernels/, with
+   ptxas's registers and spills for each kernel (any spill fails the run);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes: error against a stated limit, kernel / plain / library
-   times and the bound;
+   times, the bound, the achieved bf16 TFLOP/s and the share of the bound;
 3. the main path at full DSen2 width (6 blocks x 128 features) with the
    shipped weights: dsen2_20 and dsen2_60 on a seeded synthetic uint16
    2400 x 2400 scene at "high" and "default", each held to the port's own
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -108,43 +110,61 @@ def bound_ms(shape, k, passes, itemsize):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flop, nbytes
 
 
+# Phase 2's cases: (kernel, shape, K, dtype, passes). B1 at the main path's
+# 2x and 6x patches in both classes, its edges (ragged H and W, bf16
+# activations, VDSen2's C = 256), and B2 at the patch-132 route.
+CASES = [
+    ("chain", (64, 128, 128, 128), 2, "float32", 3),
+    ("chain", (64, 128, 128, 128), 2, "float32", 1),
+    ("chain", (64, 192, 192, 128), 2, "float32", 3),
+    ("chain", (64, 192, 192, 128), 2, "float32", 1),
+    ("chain", (2, 36, 20, 128), 2, "float32", 3),
+    ("chain", (2, 36, 20, 128), 2, "bfloat16", 1),
+    ("chain", (16, 64, 64, 256), 2, "float32", 3),
+    ("block", (64, 132, 132, 128), 1, "float32", 1),
+]
+
+
+def case_inputs(torch, gen, shape, k, dtype):
+    """x [B,H,W,C] of `dtype` and f32 w1, b1, w2, b2 for K blocks, drawn
+    from `gen` at He-like scales."""
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen, device=gen.device).to(getattr(torch, dtype))
+    wstd = (9 * c) ** -0.5
+    w1 = torch.randn((k, 3, 3, c, c), generator=gen, device=gen.device) * wstd
+    w2 = torch.randn((k, 3, 3, c, c), generator=gen, device=gen.device) * wstd
+    b1 = torch.randn((k, c), generator=gen, device=gen.device) * 0.1
+    b2 = torch.randn((k, c), generator=gen, device=gen.device) * 0.1
+    return x, w1, b1, w2, b2
+
+
+def case_calls(chain_mod, block_mod, kind, passes, x, w1, b1, w2, b2):
+    """(kernel call, plain call) of one case: B1 runs all K blocks, B2 the
+    first one."""
+    if kind == "chain":
+        def kern():
+            return chain_mod.fused_resblock_chain(x, w1, b1, w2, b2, scale=0.1, passes=passes)
+
+        def plain():
+            return chain_mod.resblock_chain_plain(x, w1, b1, w2, b2, scale=0.1, passes=passes)
+    else:
+        def kern():
+            return block_mod.fused_resblock(x, w1[0], b1[0], w2[0], b2[0], scale=0.1,
+                                            tile_rows=4)
+
+        def plain():
+            return block_mod.fused_resblock_plain(x, w1[0], b1[0], w2[0], b2[0], scale=0.1)
+    return kern, plain
+
+
 def phase_kernels(torch, chain_mod, block_mod):
     """Each kernel against its plain version at main-path shapes."""
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    cases = [  # (kernel, shape, K, dtype, passes)
-        ("chain", (64, 128, 128, 128), 2, "float32", 3),
-        ("chain", (64, 128, 128, 128), 2, "float32", 1),
-        ("chain", (64, 192, 192, 128), 2, "float32", 3),
-        ("chain", (64, 192, 192, 128), 2, "float32", 1),
-        ("chain", (2, 36, 20, 128), 2, "float32", 3),
-        ("chain", (2, 36, 20, 128), 2, "bfloat16", 1),
-        ("chain", (16, 64, 64, 256), 2, "float32", 3),
-        ("block", (64, 132, 132, 128), 1, "float32", 1),
-    ]
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(0)
     results = {}
-    for kind, shape, k, dtype, passes in cases:
-        c = shape[-1]
+    for kind, shape, k, dtype, passes in CASES:
         td = getattr(torch, dtype)
-        x = torch.randn(shape, generator=gen, device=dev).to(td)
-        wstd = (9 * c) ** -0.5
-        w1 = torch.randn((k, 3, 3, c, c), generator=gen, device=dev) * wstd
-        w2 = torch.randn((k, 3, 3, c, c), generator=gen, device=dev) * wstd
-        b1 = torch.randn((k, c), generator=gen, device=dev) * 0.1
-        b2 = torch.randn((k, c), generator=gen, device=dev) * 0.1
-        if kind == "chain":
-            def kern():
-                return chain_mod.fused_resblock_chain(x, w1, b1, w2, b2, scale=0.1, passes=passes)
-
-            def plain():
-                return chain_mod.resblock_chain_plain(x, w1, b1, w2, b2, scale=0.1, passes=passes)
-        else:
-            def kern():
-                return block_mod.fused_resblock(x, w1[0], b1[0], w2[0], b2[0], scale=0.1,
-                                                tile_rows=4)
-
-            def plain():
-                return block_mod.fused_resblock_plain(x, w1[0], b1[0], w2[0], b2[0], scale=0.1)
+        x, w1, b1, w2, b2 = case_inputs(torch, gen, shape, k, dtype)
+        kern, plain = case_calls(chain_mod, block_mod, kind, passes, x, w1, b1, w2, b2)
         got = kern()
         torch.cuda.synchronize()
         want = plain()
@@ -165,7 +185,8 @@ def phase_kernels(torch, chain_mod, block_mod):
               f"{limit:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
               f"({lib_class}) bound_ms={bms:.4f} ({by}: {flop:.3e} flop at "
               f"{PEAK_BF16_FLOPS:.3e} bf16 flop/s, {nbytes:.3e} B at {PEAK_BYTES:.3e} B/s) "
-              f"-> {'ok' if ok else 'FAIL'}", flush=True)
+              f"achieved {flop / (ms * 1e-3) / 1e12:.1f} bf16 TFLOP/s, "
+              f"{100 * bms / ms:.1f} % of the bound -> {'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"kernel {kind} {shape} {dtype} passes={passes} disagrees with its plain version")
         results[(kind, shape, dtype, passes)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -299,6 +320,10 @@ def main() -> int:
     print(f"kernel build: {log['seconds']:.2f} s -> {os.path.basename(log['path'])}")
     for line in log["ptxas"]:
         print(f"  ptxas: {line}")
+    check(any("bytes spill" in line for line in log["ptxas"]),
+          "no ptxas report for the kernels' library")
+    spills = [line for line in log["ptxas"] if re.search(r"\b[1-9]\d* bytes spill", line)]
+    check(not spills, f"ptxas reports register spills: {spills}")
     print(f"phase 1: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()

@@ -31,7 +31,10 @@ _FLAGS = [
 
 _lock = threading.Lock()
 _lib = None
-# What the last build printed: path, seconds and ptxas's register report.
+# What the last build printed: path, seconds and ptxas's report: for each
+# kernel its name, registers and spills, and any performance warning (C75xx:
+# setmaxnreg ignored, wgmma serialized). The report is kept beside the
+# library, so a cached build reads it back.
 build_log: dict = {}
 
 
@@ -50,9 +53,11 @@ def _sources() -> list[str]:
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dsen2_resblock.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, i, i, p]
-    lib.dsen2_resblock.restype = i
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    lib.dsen2_split_planes.argtypes = [p, p, ll, i, p]
+    lib.dsen2_split_planes.restype = i
+    lib.dsen2_conv3x3.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, i, i, p]
+    lib.dsen2_conv3x3.restype = i
     return lib
 
 
@@ -81,12 +86,20 @@ def load_library() -> ctypes.CDLL:
             if res.returncode != 0:
                 os.unlink(tmp)
                 raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+            keep = ("Compiling entry function", "Function properties", "registers", "spill",
+                    "C75")
+            report = [ln.strip() for ln in res.stderr.splitlines() if any(k in ln for k in keep)]
+            with open(tmp + ".ptxas", "w") as fh:
+                fh.write("\n".join(report))
+            os.replace(tmp + ".ptxas", path + ".ptxas")
             os.replace(tmp, path)
-            report = [ln.strip() for ln in res.stderr.splitlines()
-                      if "registers" in ln or "spill" in ln]
             build_log.update(path=path, seconds=seconds, ptxas=report)
             print(f"dsen2_tpu_torch: built {os.path.basename(path)} in {seconds:.1f} s")
         else:
-            build_log.update(path=path, seconds=0.0, ptxas=[])
+            report = []
+            if os.path.exists(path + ".ptxas"):
+                with open(path + ".ptxas") as fh:
+                    report = fh.read().splitlines()
+            build_log.update(path=path, seconds=0.0, ptxas=report)
         _lib = _declare(ctypes.CDLL(path))
         return _lib

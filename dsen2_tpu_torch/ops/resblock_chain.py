@@ -5,12 +5,12 @@ fused_resblock_chain (body `_chain_kernel`). Each block computes
 
     x <- x + scale * (conv3x3(relu(conv3x3(x) + b1)) + b2)
 
-on NHWC [B, H, W, C] with SAME zero padding and f32 sums. The CUDA kernel is
-`csrc/resblock_chain.cu`; its header says how it tiles and what bounds it.
-On the card one launch runs one block, so K blocks are K launches: the TPU
-kernel fused K = 2 blocks per window copy to save HBM round trips, but on
-Hopper the halo of 2K pixels on both axes costs more recompute than the
-round trip it saves (PERF.md states the choice).
+on NHWC [B, H, W, C] with SAME zero padding and f32 sums. The CUDA kernels are
+in `csrc/resblock_chain.cu`; its header says how they tile and what bounds
+them. On the card a block is two launches of one implicit-GEMM 3x3 conv
+kernel (conv1 + ReLU, conv2 + residual), with the intermediate in HBM as
+bf16 planes; the TPU kernel's fusion of K = 2 blocks per window is not
+carried over (PERF.md states the choice).
 
 `fused_resblock_chain` launches the kernel for a CUDA tensor and runs the
 plain version, `resblock_chain_plain`, for a CPU tensor; anything else
@@ -26,18 +26,12 @@ from dsen2_tpu_torch.core.device import tf32_disabled
 
 __all__ = [
     "fused_resblock_chain", "resblock_chain_plain", "resblock_plain",
-    "pack_weights", "KERNEL_CHANNELS",
+    "pack_weights", "split_planes", "KERNEL_CHANNELS",
 ]
 
 # Feature counts the CUDA kernel is instantiated for (csrc/resblock_chain.cu,
-# Tile<C>): DSen2's 128 and VDSen2's 256.
+# dispatch<C>): DSen2's 128 and VDSen2's 256.
 KERNEL_CHANNELS = (128, 256)
-
-
-def _split_bf16(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """v ~= hi + lo with hi = bf16(v), lo = bf16(v - hi), both as f32."""
-    hi = v.to(torch.bfloat16).float()
-    return hi, (v - hi).to(torch.bfloat16).float()
 
 
 def _conv(x: torch.Tensor, w: torch.Tensor, passes: int) -> torch.Tensor:
@@ -49,8 +43,8 @@ def _conv(x: torch.Tensor, w: torch.Tensor, passes: int) -> torch.Tensor:
 
     with tf32_disabled():
         if passes == 3:
-            xh, xl = _split_bf16(x)
-            wh, wl = _split_bf16(w)
+            xh, xl = split_planes(x, 3).float()
+            wh, wl = split_planes(w, 3).float()
             return conv(xh, wh) + conv(xl, wh) + conv(xh, wl)
         return conv(x, w)
 
@@ -74,27 +68,36 @@ def resblock_chain_plain(x, w1, b1, w2, b2, *, scale: float = 0.1, passes: int =
     return x
 
 
-def _fragment_order(w: torch.Tensor) -> torch.Tensor:
-    """[3, 3, C, C] bf16 HWIO -> [9, C/16, C/8, 32, 4]: for tap, k16 step,
-    n8 tile and lane, the four bf16 of that lane's B fragment, so a lane
-    reads its fragment as one 8-byte load. Lane (g, t) of an mma.m16n8k16 B
-    fragment holds k = 2t, 2t+1, 2t+8, 2t+9 of column n = g (PTX ISA,
-    "Matrix Fragments for mma.m16n8k16")."""
+def split_planes(v: torch.Tensor, passes: int) -> torch.Tensor:
+    """[planes, *v.shape] bf16: hi = bf16(v) and, for bf16x3, lo = bf16(v - hi),
+    both rounded to nearest even. The kernel's split_kernel and store_split
+    compute the same planes on the card."""
+    vf = v.float()
+    hi = vf.to(torch.bfloat16)
+    if passes == 1:
+        return hi[None]
+    return torch.stack((hi, (vf - hi.float()).to(torch.bfloat16)))
+
+
+def pack_weights(w: torch.Tensor, passes: int) -> torch.Tensor:
+    """[..., 3, 3, C, C] HWIO weights -> [..., C/128, C/64, 9, planes, 128, 64]
+    bf16, the shared-memory layout the kernel's B descriptor reads: for output
+    half nh, input chunk kc and tap, one 16 KB slice per plane holding
+    w[tap, 64 kc + k, 128 nh + n] at row n, 16-byte group (k / 8) ^ (n % 8),
+    element k % 8 (K-major with the 128-byte swizzle). One bulk copy moves a
+    (nh, kc, tap) slice with all its planes. Done once per wrapper call, from
+    the tensor as given; nothing is cached."""
     c = w.shape[-1]
-    # k within a k16 step = 8 * half + 2 * t + pair; n within an n8 tile = g.
-    w = w.reshape(9, c // 16, 2, 4, 2, c // 8, 8)  # tap ks half t pair nt g
-    w = w.permute(0, 1, 5, 6, 3, 2, 4)  # tap ks nt g t half pair
-    return w.reshape(9, c // 16, c // 8, 32, 4).contiguous()
-
-
-def pack_weights(w: torch.Tensor, passes: int) -> list[torch.Tensor]:
-    """The packed bf16 weights the kernel reads: [hi] for one pass, [hi, lo]
-    for bf16x3. Done once per launch, from the tensor as given; nothing is
-    cached."""
-    wf = w.float()
-    hi = wf.to(torch.bfloat16)
-    parts = [hi] if passes == 1 else [hi, (wf - hi.float()).to(torch.bfloat16)]
-    return [_fragment_order(p) for p in parts]
+    lead = w.shape[:-4]
+    nl = len(lead)
+    p = split_planes(w.reshape(*lead, 9, c // 64, 64, c // 128, 128), passes)
+    # [P, ..., tap, kc, k, nh, n] -> [..., nh, kc, tap, P, n, k]
+    d = [1 + i for i in range(nl)]
+    p = p.permute(*d, nl + 4, nl + 2, nl + 1, 0, nl + 5, nl + 3)
+    n = torch.arange(128, device=w.device)[:, None]
+    group = torch.arange(8, device=w.device)[None, :] ^ (n % 8)
+    p = p.reshape(*p.shape[:-1], 8, 8)[..., n, group, :]
+    return p.reshape(*p.shape[:-2], 64).contiguous()
 
 
 def check_args(x, w1, b1, w2, b2, passes: int) -> None:
@@ -116,10 +119,18 @@ def check_args(x, w1, b1, w2, b2, passes: int) -> None:
         raise ValueError("passes=3 (the bf16x3 'high' class) requires f32 inputs")
 
 
-def launch_block(x, w1, b1, w2, b2, scale: float, passes: int) -> torch.Tensor:
-    """One launch of the CUDA kernel for one block: w [3, 3, C, C], b [C].
-    Returns a new tensor; raises if the kernel cannot take the arguments or
-    the launch fails."""
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed (error {err})")
+
+
+def launch_blocks(x, w1, b1, w2, b2, scale: float, passes: int) -> torch.Tensor:
+    """Run K blocks on the card: x [B, H, W, C]; w [K, 3, 3, C, C]; b [K, C].
+    Packs all K blocks' weights in one call, then launches, per block, the
+    conv kernel twice (conv1 with the ReLU epilogue, conv2 with the residual
+    one). f32 x first goes through split_kernel once; each conv2 but the last
+    writes the planes the next block's conv1 reads. Returns a new tensor;
+    raises if the kernels cannot take the arguments or a launch fails."""
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {x.device}")
     if not x.is_contiguous() or x.data_ptr() % 16:
@@ -133,20 +144,37 @@ def launch_block(x, w1, b1, w2, b2, scale: float, passes: int) -> torch.Tensor:
     from dsen2_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    p1, p2 = pack_weights(w1, passes), pack_weights(w2, passes)
-    b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
-    out = torch.empty_like(x)
+    packed = pack_weights(torch.stack((w1, w2)), passes)  # [2, K, ...]
+    bias = torch.stack((b1, b2)).float().contiguous()      # [2, K, C]
     bsz, h, w, _ = x.shape
+    f32 = x.dtype == torch.float32
+    nplanes = 2 if passes == 3 else 1
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    t = torch.empty((nplanes, *x.shape), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = lib.dsen2_resblock(
-            x.data_ptr(), out.data_ptr(),
-            p1[0].data_ptr(), p1[-1].data_ptr() if passes == 3 else None, b1f.data_ptr(),
-            p2[0].data_ptr(), p2[-1].data_ptr() if passes == 3 else None, b2f.data_ptr(),
-            bsz, h, w, c, float(scale), passes, 0 if x.dtype == torch.float32 else 1,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"resblock kernel launch failed (error {err})")
+        if f32:
+            planes = torch.empty_like(t)
+            _check(lib.dsen2_split_planes(x.data_ptr(), planes.data_ptr(), x.numel(), passes,
+                                          stream), "split")
+        else:
+            planes = x
+        resid = x
+        nblocks = w1.shape[0]
+        for k in range(nblocks):
+            _check(lib.dsen2_conv3x3(planes.data_ptr(), packed[0, k].data_ptr(),
+                                     bias[0, k].data_ptr(), None, None, t.data_ptr(),
+                                     bsz, h, w, c, 1.0, passes, 0, 0, stream), "conv1")
+            # bf16 activations are their own single plane; f32 ones get theirs
+            # from conv2's epilogue, except after the last block.
+            nxt = planes.data_ptr() if f32 and k + 1 < nblocks else None
+            _check(lib.dsen2_conv3x3(t.data_ptr(), packed[1, k].data_ptr(),
+                                     bias[1, k].data_ptr(), resid.data_ptr(), out.data_ptr(),
+                                     nxt, bsz, h, w, c, float(scale), passes,
+                                     0 if f32 else 1, 1, stream), "conv2")
+            resid = out  # blocks after the first update out in place
+            if not f32:
+                planes = out
     return out
 
 
@@ -155,14 +183,15 @@ def fused_resblock_chain(x, w1, b1, w2, b2, *, scale: float = 0.1, passes: int =
     b1/b2 [K, C]. passes=1 is one bf16 pass (the "default" class), passes=3
     bf16x3 (the "high" class, f32 x only).
 
-    A CUDA tensor goes through the kernel, one launch per block, any H and
-    W; a CPU tensor through `resblock_chain_plain`."""
+    A CUDA tensor goes through the kernels (`launch_blocks`), any H and W; a
+    CPU tensor through `resblock_chain_plain`. `.launches` counts residual
+    blocks run on the card, K per call, whatever the number of CUDA launches
+    a block takes (two convs, plus one split per call for f32 x)."""
     check_args(x, w1, b1, w2, b2, passes)
     if x.device.type == "cpu":
         return resblock_chain_plain(x, w1, b1, w2, b2, scale=scale, passes=passes)
-    for k in range(w1.shape[0]):
-        x = launch_block(x, w1[k], b1[k], w2[k], b2[k], scale, passes)
-        fused_resblock_chain.launches += 1
+    x = launch_blocks(x, w1, b1, w2, b2, scale, passes)
+    fused_resblock_chain.launches += w1.shape[0]
     return x
 
 

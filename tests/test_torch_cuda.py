@@ -55,6 +55,56 @@ def test_chain_kernel_matches_plain(dev, c, dtype, passes, hw):
     assert err <= TOL[(dtype, passes)] * want.float().abs().max().item(), err
 
 
+def _check_chain(x, w1, b1, w2, b2, passes):
+    got = resblock_chain.fused_resblock_chain(x, w1, b1, w2, b2, passes=passes)
+    torch.cuda.synchronize()
+    want = resblock_chain.resblock_chain_plain(x, w1, b1, w2, b2, passes=passes)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[(x.dtype, passes)] * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_chain_kernel_tile_count_not_a_multiple_of_the_sms(dev, passes):
+    """The persistent grid has one CTA per SM; some CTAs take one tile more."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_image = 4 * 5  # 16 x 16 tiles of a 64 x 80 image
+    b = sms // per_image + 1
+    assert (b * per_image) % sms and b * per_image > sms
+    _check_chain(*_block_args(dev, (b, 64, 80, 128), 2, torch.float32), passes)
+
+
+@pytest.mark.parametrize("dtype,passes", [(torch.float32, 3), (torch.float32, 1),
+                                          (torch.bfloat16, 1)])
+def test_chain_kernel_image_smaller_than_one_tile(dev, dtype, passes):
+    _check_chain(*_block_args(dev, (1, 5, 11, 128), 2, dtype, seed=2), passes)
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_chain_kernel_c256_more_tiles_than_sms(dev, passes):
+    """VDSen2 width: two 128-channel halves per pixel tile, 144 tiles."""
+    _check_chain(*_block_args(dev, (6, 48, 64, 256), 2, torch.float32, seed=3), passes)
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_chain_kernel_is_deterministic(dev, passes):
+    """No atomics: the same call twice gives the same bits."""
+    x, w1, b1, w2, b2 = _block_args(dev, (3, 40, 56, 128), 2, torch.float32, seed=4)
+    a = resblock_chain.fused_resblock_chain(x, w1, b1, w2, b2, passes=passes)
+    b = resblock_chain.fused_resblock_chain(x, w1, b1, w2, b2, passes=passes)
+    assert torch.equal(a, b)
+
+
+def test_fused_resblock_main_path_shape(dev):
+    """B2 at the shape the patch-132 route gives it: 132 = 8 * 16 + 4."""
+    x, w1, b1, w2, b2 = _block_args(dev, (64, 132, 132, 128), 1, torch.float32, seed=5)
+    got = resblock.fused_resblock(x, w1[0], b1[0], w2[0], b2[0], tile_rows=4)
+    torch.cuda.synchronize()
+    want = resblock.fused_resblock_plain(x, w1[0], b1[0], w2[0], b2[0])
+    err = (got - want).abs().max().item()
+    assert err <= TOL[(torch.float32, 1)] * want.abs().max().item(), err
+
+
 def test_zero_weights_identity(dev):
     x, w1, b1, w2, b2 = _block_args(dev, (2, 16, 24, 128), 1, torch.float32)
     z, zb = torch.zeros_like(w1), torch.zeros_like(b1)

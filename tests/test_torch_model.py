@@ -64,15 +64,16 @@ def test_rejects_unknown_precision(rng):
 @pytest.fixture
 def launches(monkeypatch):
     """Replace the CUDA launcher with a recorder, so a call on a non-CPU
-    ("meta") tensor shows which kernel entry the routing reached."""
+    ("meta") tensor shows which kernel entry the routing reached: one entry
+    per residual block, with its passes."""
     calls = []
 
     def fake(x, w1, b1, w2, b2, scale, passes):
-        calls.append(passes)
+        calls.extend([passes] * w1.shape[0])
         return torch.empty_like(x)
 
-    monkeypatch.setattr(resblock_chain, "launch_block", fake)
-    monkeypatch.setattr(resblock, "launch_block", fake)
+    monkeypatch.setattr(resblock_chain, "launch_blocks", fake)
+    monkeypatch.setattr(resblock, "launch_blocks", fake)
     return calls
 
 

@@ -90,21 +90,24 @@ def test_device_rule(monkeypatch):
         resolve_device()
 
 
-@pytest.mark.parametrize("c", [32, 128])
+@pytest.mark.parametrize("c", [128, 256])
 def test_weight_packing_follows_mma_fragment_layout(rng, c):
-    """Each lane (g, t) of an m16n8k16 B fragment must find, for tap, k step
-    ks and n tile nt, the weights w[tap, ks*16 + k, nt*8 + g] for
-    k = 2t, 2t+1, 2t+8, 2t+9."""
+    """The wgmma B operand: for output half nh, input chunk kc, tap and
+    plane, a [128 n, 64 k] K-major tile with 16-byte group k // 8 of row n
+    stored at group (k // 8) ^ (n % 8). Spot-check entries, and that hi + lo
+    carries every weight."""
     w = torch.from_numpy(rng.standard_normal((3, 3, c, c)).astype(np.float32))
-    hi, lo = resblock_chain.pack_weights(w, passes=3)
-    assert hi.shape == (9, c // 16, c // 8, 32, 4) and hi.dtype == torch.bfloat16
+    packed = resblock_chain.pack_weights(w, passes=3)
+    assert packed.shape == (c // 128, c // 64, 9, 2, 128, 64)
+    assert packed.dtype == torch.bfloat16
     whi = w.to(torch.bfloat16).reshape(9, c, c)
-    for tap, ks, nt, lane in [(0, 0, 0, 0), (4, 1, 3, 17), (8, c // 16 - 1, c // 8 - 1, 31)]:
-        g, t = divmod(lane, 4)
-        ks_k = [ks * 16 + k for k in (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)]
-        assert torch.equal(hi[tap, ks, nt, lane], whi[tap, ks_k, nt * 8 + g])
+    for tap, k, n in [(0, 0, 0), (4, 77, 13), (8, c - 1, c - 1), (2, 9, 130 % c)]:
+        nh, nn, kc, kk = n // 128, n % 128, k // 64, k % 64
+        col = ((kk // 8) ^ (nn % 8)) * 8 + kk % 8
+        assert packed[nh, kc, tap, 0, nn, col] == whi[tap, k, n]
+    hi, lo = packed[:, :, :, 0], packed[:, :, :, 1]
     # hi + lo carries every weight to ~2^-16 relative: compare sorted values
     np.testing.assert_allclose(np.sort((hi.float() + lo.float()).numpy().ravel()),
                                np.sort(w.numpy().ravel()), rtol=2 ** -14, atol=0)
-    (only_hi,) = resblock_chain.pack_weights(w, passes=1)
-    assert torch.equal(only_hi, hi)
+    only_hi = resblock_chain.pack_weights(w, passes=1)
+    assert torch.equal(only_hi[:, :, :, 0], hi)
