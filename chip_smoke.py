@@ -16,8 +16,18 @@ Phases, each printing its lines and its seconds:
    2400 x 2400 scene at "high" and "default", each held to the port's own
    "highest" output, plus one B2-route run (patch 132, "default") and one
    run under torch.inference_mode(); every kernel's launch count must rise;
-4. one {"kernels": [...]} JSON line;
-5. the card's name and power limit, then {"ok": true, "device": {...}}.
+4. the full-tile path: dsen2_20 on a seeded 10980 x 10980 uint16 tile at
+   "high" and "default" through the banded engine (host output) and the
+   one-shot path (device output, then one copy), each with its wall time,
+   peak device memory and device idle share from one profiled call; the
+   banded mosaic must equal the one-shot one and use less device memory;
+   dsen2_60 banded; uint16 output against the rounded float32 one, with the
+   bytes read back; the self-ensemble at 3000^2 (banded route) and 2400^2
+   (whole-tile route) against the mean of the 8 transformed runs computed
+   here; the B2 route (patch 132) banded; and the demo's run_scene on a
+   seeded 600^2 .mat. Both kernels' launch counts must rise;
+5. one {"kernels": [...]} JSON line, launches counted over phases 3 and 4;
+6. the card's name and power limit, then {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line. Without a CUDA device,
 or without the dsen2_tpu_torch package beside it, the script fails.
@@ -179,6 +189,14 @@ def phase_kernels(torch, chain_mod, block_mod):
         lib_ms = time_ms(torch, lambda: library_chain(torch, x, *wl, 0.1, tf32))
         lib_class = {("float32", 3): "f32 convs, TF32 off", ("float32", 1): "f32 convs, TF32 on",
                      ("bfloat16", 1): "bf16 convs"}[(dtype, passes)]
+        if (dtype, passes) == ("float32", 1):
+            # The one-pass class is bf16 operands with f32 sums: cuDNN's bf16
+            # convs, not TF32, compute the same function.
+            xb, wb = x.to(torch.bfloat16), [t.to(torch.bfloat16) for t in (w1, b1, w2, b2)]
+            lib_tf32_ms = lib_ms
+            lib_ms = time_ms(torch, lambda: library_chain(torch, xb, *wb, 0.1, False))
+            lib_class = f"bf16 convs; f32 convs with TF32 on {lib_tf32_ms:.4f} ms"
+            del xb, wb
         bms, by, flop, nbytes = bound_ms(shape, k, passes, x.element_size())
         print(f"kernel {kind} {list(shape)} K={k} {dtype} passes={passes}: "
               f"max_abs_err={err:.3e} (limit {KERNEL_TOL[(dtype, passes)]} x max|plain| = "
@@ -297,6 +315,230 @@ def phase_main_path(torch, api, weights, chain_mod, block_mod, card):
     return launches
 
 
+# Phase 4's sizes: a whole L1C tile on the 10 m grid, tiled from a seeded
+# scene of TILE_BASE px; the ensemble at a banded and a whole-tile size.
+FULL_TILE, TILE_BASE = 10980, 2196
+ENSEMBLE_SIZES = ((3000, "banded"), (2400, "whole-tile"))
+
+
+def tiled_scene(seed: int, h10: int, base: int):
+    """A seeded uint16 scene of h10 x h10 px (h10 a multiple of `base`),
+    tiled from synthetic_scene(seed, base) so that no float64 temporary of
+    the whole tile exists."""
+    reps = h10 // base
+    return tuple(np.tile(r, (reps, reps, 1)) for r in synthetic_scene(seed, base))
+
+
+def timed(torch, fn):
+    """(result, wall s, peak device bytes) of one call, host clock around
+    work that ends in a synchronise."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def device_profile(torch, fn, top: int = 0) -> dict:
+    """Run fn once under torch.profiler (device activity only) and return,
+    in seconds: "wall"; "busy", the union of the device's activity intervals
+    (None if the trace holds no device event); "kernels", "HtoD" and
+    "DtoH", summed over streams; "edges", the wall time before the first and
+    after the last device activity; "gaps", the idle time between device
+    activities in gaps over 1 ms. Prints the `top` costliest device
+    entries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type.name == "CUDA")
+    out = {"wall": wall, "busy": None, "kernels": 0.0, "HtoD": 0.0, "DtoH": 0.0,
+           "edges": None, "gaps": 0.0}
+    busy, end = 0.0, None
+    for a, b, name in spans:
+        kind = "HtoD" if "HtoD" in name else "DtoH" if "DtoH" in name else "kernels"
+        out[kind] += (b - a) / 1e6
+        if end is not None and a - end > 1e3:
+            out["gaps"] += (a - end) / 1e6
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    if spans:
+        out["busy"] = busy / 1e6
+        out["edges"] = wall - (end - spans[0][0]) / 1e6
+    if top:
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+            print(f"  {e.self_device_time_total / 1e3:10.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    return out
+
+
+def idle_text(p: dict) -> str:
+    if p["busy"] is None:
+        return "device idle share not measured (no device events in the trace)"
+    return (f"profiled wall {p['wall']:.3f} s, device busy {p['busy']:.3f} s, idle share "
+            f"{100 * (1 - p['busy'] / p['wall']):.1f} % (before the first and after the last "
+            f"device activity {p['edges']:.3f} s, in gaps over 1 ms {p['gaps']:.3f} s); "
+            f"kernels {p['kernels']:.3f} s, HtoD {p['HtoD']:.3f} s, DtoH {p['DtoH']:.3f} s "
+            f"summed over streams")
+
+
+def ensemble_reference(rasters, run):
+    """Mean of the 8 dihedral-transformed runs run(rasters), inverted, in
+    float32 on the host, summed in code order."""
+    from dsen2_tpu_torch.ops.dihedral import dihedral_np, inverse_code
+
+    acc = None
+    for code in range(8):
+        out = run([dihedral_np(r, code) for r in rasters])
+        back = dihedral_np(out, inverse_code[code])
+        acc = back if acc is None else acc + back
+    return acc / np.float32(8)
+
+
+def phase_full_tile(torch, api, engine, weights, chain_mod, block_mod, card):
+    """The full-tile path, the uint16 output, the ensemble and the demo."""
+    import scipy.io
+
+    from dsen2_tpu_torch.cli import demo
+    from dsen2_tpu_torch.core.config import InferConfig, dsen2_2x
+
+    models = os.path.join(HERE, "models")
+    params20 = weights.load_params_npz(os.path.join(models, "s2_032_lr_1e-04.npz"))
+    params60 = weights.load_params_npz(os.path.join(models, "s2_030_lr_1e-05.npz"))
+    t0 = time.perf_counter()
+    d10, d20, d60 = tiled_scene(1, FULL_TILE, TILE_BASE)
+    mp = d10.shape[0] * d10.shape[1] / 1e6
+    print(f"full tile: {d10.shape} uint16 scene built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    moved = engine.transfer_bytes
+    chain_mod.fused_resblock_chain.launches = 0
+    block_mod.fused_resblock.launches = 0
+
+    f32_default = None
+    for prec in ("high", "default"):
+        cfg = InferConfig(patch_size=128, border=8, precision=prec)
+
+        def banded():
+            return api.dsen2_20(d10, d20, params=params20, infer_cfg=cfg)
+
+        def one_shot():
+            return api._run([d10, d20], 2, dsen2_2x(), params20, cfg,
+                            device_output=True).cpu().numpy()
+
+        rows = {}
+        for name, fn in (("banded", banded), ("one-shot", one_shot)):
+            d2h0 = moved["d2h"]
+            _, cold, _ = timed(torch, fn)
+            blocks = chain_mod.fused_resblock_chain.launches
+            out, warm, peak = timed(torch, fn)
+            blocks = chain_mod.fused_resblock_chain.launches - blocks
+            prof = device_profile(torch, fn, top=10 if (prec, name) == ("high", "banded") else 0)
+            d2h = moved["d2h"] - d2h0
+            print(f"dsen2_20 {FULL_TILE}^2 {prec} {name}: cold {cold:.3f} s, warm {warm:.3f} s, "
+                  f"{mp / warm:.2f} MP/s on {card}; peak device memory {peak / 2**30:.2f} GiB; "
+                  f"{idle_text(prof)}; read back by the engine in 3 calls: {d2h} B; "
+                  f"B1 blocks in one call: {blocks}", flush=True)
+            check(out.shape == (*d10.shape[:2], 6) and np.isfinite(out).all(),
+                  f"dsen2_20 {FULL_TILE}^2 {prec} {name} output")
+            check(d2h == (3 * out.nbytes if name == "banded" else 0),
+                  f"dsen2_20 {FULL_TILE}^2 {prec} {name} took the wrong route")
+            rows[name] = (out, peak)
+        (b, peak_b), (o, peak_o) = rows["banded"], rows["one-shot"]
+        diff = float(np.abs(b - o).max())
+        limit = E2E_TOL[prec] * float(np.abs(o).max())
+        print(f"banded vs one-shot {prec}: max|diff| {diff:.3e} DN (limit {limit:.3f}), "
+              f"bit-equal {bool(np.array_equal(b, o))}; peak {peak_b / 2**30:.2f} vs "
+              f"{peak_o / 2**30:.2f} GiB", flush=True)
+        check(diff <= limit, f"banded {prec} differs from one-shot")
+        check(peak_b < peak_o, f"banded {prec} peak memory not below one-shot's")
+        if prec == "default":
+            f32_default = b
+        del rows, b, o
+
+    cfg = InferConfig(patch_size=192, border=12, precision="default")
+    _, cold, _ = timed(torch, lambda: api.dsen2_60(d10, d20, d60, params=params60, infer_cfg=cfg))
+    out60, warm, peak = timed(
+        torch, lambda: api.dsen2_60(d10, d20, d60, params=params60, infer_cfg=cfg))
+    print(f"dsen2_60 {FULL_TILE}^2 default banded: cold {cold:.3f} s, warm {warm:.3f} s, "
+          f"{mp / warm:.2f} MP/s; peak device memory {peak / 2**30:.2f} GiB", flush=True)
+    check(out60.shape == (*d10.shape[:2], 2) and np.isfinite(out60).all(),
+          "dsen2_60 banded output")
+    del out60
+
+    # B2 route: patch 132 has no 8-row tile, so "default" takes fused_resblock.
+    cfg = InferConfig(patch_size=132, border=8, precision="default")
+    blocks = block_mod.fused_resblock.launches
+    out132, wall, peak = timed(torch, lambda: api.dsen2_20(d10, d20, params=params20,
+                                                           infer_cfg=cfg))
+    blocks = block_mod.fused_resblock.launches - blocks
+    print(f"dsen2_20 {FULL_TILE}^2 patch 132 default banded (fused_resblock): {wall:.3f} s, "
+          f"{mp / wall:.2f} MP/s; peak device memory {peak / 2**30:.2f} GiB; B2 blocks {blocks}",
+          flush=True)
+    check(out132.shape == (*d10.shape[:2], 6) and np.isfinite(out132).all() and blocks > 0,
+          "dsen2_20 patch 132 banded output or its B2 launches")
+    del out132
+
+    cfg = InferConfig(patch_size=128, border=8, precision="default", output_dtype="uint16")
+    timed(torch, lambda: api.dsen2_20(d10, d20, params=params20, infer_cfg=cfg))
+    d2h0 = moved["d2h"]
+    u16, warm, _ = timed(torch, lambda: api.dsen2_20(d10, d20, params=params20, infer_cfg=cfg))
+    d2h = moved["d2h"] - d2h0
+    want = np.clip(np.round(f32_default), 0, 65535)
+    diff = float(np.abs(u16.astype(np.float32) - want).max())
+    print(f"dsen2_20 {FULL_TILE}^2 default uint16: warm {warm:.3f} s, {mp / warm:.2f} MP/s; "
+          f"{d2h} B read back ({d2h / f32_default.nbytes:.3f} of float32's); max|diff vs "
+          f"rounded float32| {diff:.0f} DN", flush=True)
+    check(u16.dtype == np.uint16 and d2h == u16.nbytes, "uint16 output or its d2h bytes")
+    check(diff <= 1, "uint16 output strays from the rounded float32 one")
+    del u16, want, f32_default, d10, d20, d60
+
+    cfg = InferConfig(patch_size=128, border=8, precision="default")
+    for h10, route in ENSEMBLE_SIZES:
+        rasters = synthetic_scene(2, h10)[:2]
+        timed(torch, lambda: api.dsen2_20(*rasters, params=params20, infer_cfg=cfg,
+                                          ensemble=True))
+        ens, warm, peak = timed(torch, lambda: api.dsen2_20(
+            *rasters, params=params20, infer_cfg=cfg, ensemble=True))
+        want = ensemble_reference(
+            rasters, lambda rs: api.dsen2_20(*rs, params=params20, infer_cfg=cfg))
+        diff = float(np.abs(ens - want).max())
+        limit = E2E_TOL["default"] * float(np.abs(want).max())
+        print(f"ensemble {h10}^2 default ({route} route): warm {warm:.3f} s, "
+              f"{h10 * h10 / 1e6 / warm:.2f} MP/s, peak device memory {peak / 2**30:.2f} GiB; "
+              f"max|diff vs mean of 8 runs| {diff:.3e} DN (limit {limit:.3f})", flush=True)
+        check(ens.shape == want.shape and np.isfinite(ens).all(), f"ensemble {h10}^2 output")
+        check(diff <= limit, f"ensemble {h10}^2 differs from the mean of its 8 runs")
+
+    scene_dir = os.path.join(HERE, "build", "smoke_scene")
+    os.makedirs(scene_dir, exist_ok=True)
+    im10, im20, im60 = synthetic_scene(3, 600)
+    path = os.path.join(scene_dir, "synthetic_600.mat")
+    scipy.io.savemat(path, {"im10": im10, "im20": im20, "im60": im60})
+    t0 = time.perf_counter()
+    res = demo.run_scene(path, deep=False, plots=False, out_dir=os.path.join(scene_dir, "out"))
+    print(f"demo run_scene 600^2: {time.perf_counter() - t0:.3f} s; {res}", flush=True)
+    check(all(np.isfinite(v) for k, v in res.items() if k != "scene") and
+          {"rmse_dsen2_20", "rmse_bicubic_20", "rmse_dsen2_60"} <= set(res),
+          "demo run_scene results")
+
+    launches = {"fused_resblock_chain": chain_mod.fused_resblock_chain.launches,
+                "fused_resblock": block_mod.fused_resblock.launches}
+    print(f"full-tile path launches: {launches}", flush=True)
+    for k, n in launches.items():
+        check(n > 0, f"{k} was not launched on the full-tile path")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -307,7 +549,7 @@ def main() -> int:
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
-    from dsen2_tpu_torch.infer import api
+    from dsen2_tpu_torch.infer import api, engine
     from dsen2_tpu_torch import weights
     from dsen2_tpu_torch.ops import _build, resblock, resblock_chain
 
@@ -333,6 +575,11 @@ def main() -> int:
     t0 = time.perf_counter()
     launches = phase_main_path(torch, api, weights, resblock_chain, resblock, card)
     print(f"phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    full = phase_full_tile(torch, api, engine, weights, resblock_chain, resblock, card)
+    launches = {k: n + full[k] for k, n in launches.items()}
+    print(f"phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
 
     main_b1 = res[("chain", (64, 128, 128, 128), "float32", 3)]
     main_b2 = res[("block", (64, 132, 132, 128), "float32", 1)]

@@ -14,9 +14,10 @@ from __future__ import annotations
 import contextlib
 from typing import Iterator, Optional, Union
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "tf32_disabled"]
+__all__ = ["resolve_device", "tf32_disabled", "upload"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -44,3 +45,16 @@ def tf32_disabled() -> Iterator[None]:
     finally:
         torch.backends.cudnn.allow_tf32 = conv
         torch.backends.cuda.matmul.allow_tf32 = mm
+
+
+def upload(a: np.ndarray, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Host array `a` as a tensor on `device` (cast to `dtype` on the host
+    when given). On CUDA the copy is queued from pinned memory on the current
+    stream and the host does not wait for it; torch's pinned-memory cache
+    hands the staging block out again only after that copy has completed."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dtype is not None:
+        t = t.to(dtype)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

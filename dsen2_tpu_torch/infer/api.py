@@ -1,7 +1,6 @@
 """DSen2 inference API: numpy HWC in -> numpy HWC out.
 
-The counterpart of dsen2_tpu/infer/api.py:45-309 and :446-493. One pipeline
-serves both heads:
+The counterpart of dsen2_tpu/infer/api.py. One pipeline serves both heads:
 
     symmetric halo pad -> per-chunk patch gather -> per-patch bilinear
     LR->HR upsample (two f32 matmuls) -> s2net -> border crop ->
@@ -11,10 +10,15 @@ The schedule (patch starts, output positions, chunks) is host numpy, as in
 the JAX package; the rasters, the padded images, every chunk and the mosaic
 live on the device. Rasters of dtypes that embed exactly in float32 (uint16
 L1C data above all) cross to the device unconverted and are cast there.
+Host outputs of _BANDED_THRESHOLD_PX pixels or more go through the banded
+engine (infer/engine.py), which overlaps both transfers with compute.
+`ensemble=True` averages the 8 dihedral transforms on the device and reads
+back one mosaic.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -22,7 +26,7 @@ import torch
 
 from dsen2_tpu_torch.core.bands import SCALE
 from dsen2_tpu_torch.core.config import InferConfig, ModelConfig, dsen2_2x, dsen2_6x
-from dsen2_tpu_torch.core.device import resolve_device
+from dsen2_tpu_torch.core.device import resolve_device, upload
 from dsen2_tpu_torch.models import s2net
 from dsen2_tpu_torch.ops.resize import upsample_patches
 from dsen2_tpu_torch.ops.tiling import (
@@ -35,6 +39,10 @@ __all__ = [
 ]
 
 Device = Union[str, torch.device, None]
+
+# Host-output tiles of at least this many 10 m pixels go through the banded
+# engine; the ensemble uses it to pick the banded route for large tiles.
+_BANDED_THRESHOLD_PX = 3000 * 3000
 
 
 def build_grids(
@@ -89,6 +97,35 @@ def _cast(img: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return img.to(dtype)
 
 
+def _mosaic_dtype(out_dtype: np.dtype) -> torch.dtype:
+    """The device dtype of a mosaic of `out_dtype`: the same width, and
+    signed for unsigned types wider than a byte, which hold their values'
+    two's-complement bit patterns (torch has few kernels for uint16;
+    _host_view reinterprets the bytes on the host)."""
+    if out_dtype == np.uint8:
+        return torch.uint8
+    if np.issubdtype(out_dtype, np.integer):
+        return getattr(torch, f"int{8 * out_dtype.itemsize}")
+    return getattr(torch, out_dtype.name)
+
+
+def _quantize(v: torch.Tensor, out_dtype: np.dtype) -> torch.Tensor:
+    """Round half to even, clip to out_dtype's range, store in
+    _mosaic_dtype(out_dtype) (through int64, which wraps to the narrower
+    signed type bit for bit)."""
+    info = np.iinfo(out_dtype)
+    v = torch.clamp(torch.round(v), info.min, info.max).to(torch.int64)
+    if out_dtype.itemsize <= 4:  # f32 rounds 2**31 - 1 and 2**32 - 1 up
+        v = v.clamp(info.min, info.max)
+    return v.to(_mosaic_dtype(out_dtype))
+
+
+def _host_view(a: np.ndarray, out_dtype: np.dtype) -> np.ndarray:
+    """A mosaic read back from the device as out_dtype (a view of the same
+    bytes: unsigned types come back from their signed twin)."""
+    return a if a.dtype == out_dtype else a.view(out_dtype)
+
+
 def sr_tile(
     params,
     inputs: Tuple[torch.Tensor, ...],
@@ -99,11 +136,17 @@ def sr_tile(
     infer_cfg: InferConfig,
     grids: Tuple[PatchGrid, ...],
     out_hw: Tuple[int, int],
+    pad_inputs: bool = True,
 ) -> torch.Tensor:
     """Tiled super-resolution over `inputs` (HWC rasters on one device, one
     per resolution, finest first) with torch params. Returns the
     [H, W, C_out] mosaic on that device: float in infer_cfg.output_dtype,
-    or for an integer output_dtype the rounded, clipped values as int64."""
+    or for an integer output_dtype the rounded, clipped values in a tensor
+    of that dtype's width (_mosaic_dtype; _host_view reads it back).
+
+    pad_inputs=False: the inputs are windows that already carry their
+    symmetric halo, and `starts` are window coordinates. Nothing here makes
+    the host wait for the device."""
     p_hr, border = infer_cfg.patch_size, infer_cfg.border
     out_dtype = np.dtype(infer_cfg.output_dtype)
     integer = np.issubdtype(out_dtype, np.integer)
@@ -112,15 +155,15 @@ def sr_tile(
         params = {top: {k: v.to(compute_dtype) for k, v in sub.items()}
                   for top, sub in params.items()}
 
-    padded = [pad_symmetric(_cast(img, compute_dtype), g.border)
-              for img, g in zip(inputs, grids)]
+    padded = [_cast(img, compute_dtype) for img in inputs]
+    if pad_inputs:
+        padded = [pad_symmetric(img, g.border) for img, g in zip(padded, grids)]
+    device = inputs[0].device
+    starts_dev = upload(starts, device)
     inv_scale = float(np.float32(1.0 / SCALE))
-    mosaic = torch.zeros(
-        (out_hw[0], out_hw[1], cfg.out_channels),
-        dtype=torch.int64 if integer else getattr(torch, out_dtype.name),
-        device=inputs[0].device,
-    )
-    for chunk_starts, chunk_pos in zip(starts, positions):
+    mosaic = torch.zeros((out_hw[0], out_hw[1], cfg.out_channels),
+                         dtype=_mosaic_dtype(out_dtype), device=device)
+    for chunk_starts, chunk_pos in zip(starts_dev, positions):
         patches = [gather_patches(pad, chunk_starts[:, i], g.patch)
                    for i, (pad, g) in enumerate(zip(padded, grids))]
         net_in = [patches[0] * inv_scale]
@@ -129,10 +172,8 @@ def sr_tile(
                            use_kernels=infer_cfg.use_kernels)
         pred = pred.float() * SCALE
         interiors = pred[:, border : p_hr - border, border : p_hr - border, :]
-        if integer:
-            info = np.iinfo(out_dtype)
-            interiors = torch.clamp(torch.round(interiors), info.min, info.max)
-        write_interiors(mosaic, interiors.to(mosaic.dtype), chunk_pos)
+        interiors = _quantize(interiors, out_dtype) if integer else interiors.to(mosaic.dtype)
+        write_interiors(mosaic, interiors, chunk_pos)
     return mosaic
 
 
@@ -193,13 +234,21 @@ def _run(
     params,
     infer_cfg: InferConfig,
     device: Device = None,
-) -> np.ndarray:
-    """The 2x and 6x paths share this runner. rasters: finest-first HWC numpy;
-    params: a numpy (or tensor) params dict."""
+    device_output: bool = False,
+):
+    """The 2x and 6x paths share this runner. rasters: finest-first HWC numpy
+    (or tensors); params: a numpy (or tensor) params dict. Returns a host
+    array, or with device_output=True the mosaic tensor on the device (in
+    _mosaic_dtype). Host outputs of _BANDED_THRESHOLD_PX pixels or more go
+    through the banded engine."""
     dev = resolve_device(device)
     out_dtype = _output_dtype(infer_cfg.output_dtype)
     _validate_inputs(rasters, lr_factor, cfg, infer_cfg)
     h10, w10 = rasters[0].shape[:2]
+    if not device_output and h10 * w10 >= _BANDED_THRESHOLD_PX:
+        from dsen2_tpu_torch.infer.engine import sr_banded
+
+        return sr_banded(rasters, lr_factor, cfg, params, infer_cfg, device=dev)
     grids = build_grids([r.shape for r in rasters], lr_factor, infer_cfg)
     interior = infer_cfg.patch_size - 2 * infer_cfg.border
     batch = min(infer_cfg.batch_size, grids[0].num_patches)
@@ -212,7 +261,91 @@ def _run(
             starts, positions,
             cfg=cfg, infer_cfg=infer_cfg, grids=grids, out_hw=(h10, w10),
         )
-        return out.cpu().numpy().astype(out_dtype, copy=False)
+    if device_output:
+        return out
+    return _host_view(out.cpu().numpy(), out_dtype)
+
+
+def _ens_add_band(acc: torch.Tensor, stripe: torch.Tensor, idx: int, *, k: int, f: bool):
+    """Add one band of a dihedral-transformed SR mosaic into the
+    output-space f32 accumulator, in place. The band covers rows [y0, y0+h)
+    of the TRANSFORMED mosaic; under the inverse transform it lands as a
+    contiguous row stripe (k even) or column stripe (k odd) of output space,
+    starting at row or column `idx`; k/f encode the forward transform
+    (ops/dihedral.py: k quarter-turns, then a flip along axis 0 iff f)."""
+    s = torch.flip(stripe, dims=(0,)) if f else stripe
+    # The inverse, once the flip is undone, is rot90(.., -k) of the stripe.
+    content = torch.rot90(s.float(), -k, dims=(0, 1))
+    if k % 2 == 0:
+        acc[idx : idx + content.shape[0]] += content
+    else:
+        acc[:, idx : idx + content.shape[1]] += content
+    return acc
+
+
+def _ens_accumulate_bands(acc: torch.Tensor, bands, code: int) -> torch.Tensor:
+    """Fold one dihedral transform's banded SR output into the accumulator,
+    band by band, so that no full transformed mosaic is ever held. bands:
+    iterable of (tensor, y0, band_h) in the TRANSFORMED mosaic's rows."""
+    k, f = code % 4, code >= 4
+    h_out, w_out = acc.shape[:2]
+    rows_tr = h_out if k % 2 == 0 else w_out  # rows of the transformed mosaic
+    for band, y0, h in bands:
+        a = rows_tr - y0 - h if f else y0  # stripe start after un-flipping
+        # After rot90(.., -k) the stripe starts at:
+        #   k=0: row a    k=1: col rows_tr-a-h    k=2: row rows_tr-a-h
+        #   k=3: col a
+        idx = a if k in (0, 3) else rows_tr - a - h
+        acc = _ens_add_band(acc, band, idx, k=k, f=f)
+    return acc
+
+
+def _run_ensembled(
+    rasters: Sequence[np.ndarray],
+    lr_factor: int,
+    cfg: ModelConfig,
+    params,
+    infer_cfg: InferConfig,
+    device: Device = None,
+) -> np.ndarray:
+    """Geometric self-ensemble: run the pipeline on all 8 dihedral
+    transforms of the input rasters, invert each prediction, average.
+
+    The rasters cross to the device once; the 8 transforms and the f32 sum
+    live there, and the host reads back one mosaic. Tiles below
+    _BANDED_THRESHOLD_PX run each transform whole; larger ones run the
+    banded engine and fold each band into the sum as it comes, so the
+    device holds the sum and about two bands, never a transformed mosaic.
+    An integer output_dtype is applied once, to the mean."""
+    from dsen2_tpu_torch.infer.engine import sr_banded
+    from dsen2_tpu_torch.ops.dihedral import dihedral_static, inverse_code
+
+    dev = resolve_device(device)
+    out_dtype = _output_dtype(infer_cfg.output_dtype)
+    _validate_inputs(rasters, lr_factor, cfg, infer_cfg)
+    f32_cfg = dataclasses.replace(infer_cfg, output_dtype="float32")
+    tparams = params_to_torch(params, dev)
+    # f32 on the device, exact for the compact dtypes, before any transform.
+    staged = [_cast(stage_raster(r, dev), torch.float32) for r in rasters]
+    h10, w10 = staged[0].shape[:2]
+    large = h10 * w10 >= _BANDED_THRESHOLD_PX
+
+    acc = torch.zeros((h10, w10, cfg.out_channels), dtype=torch.float32, device=dev)
+    for code in range(8):
+        tr = [dihedral_static(r, code) for r in staged]
+        if large:
+            bands = sr_banded(tr, lr_factor, cfg, tparams, f32_cfg, device_output=True,
+                              device=dev)
+            acc = _ens_accumulate_bands(acc, bands, code)
+        else:
+            sr = _run(tr, lr_factor, cfg, tparams, f32_cfg, device=dev, device_output=True)
+            acc += dihedral_static(sr, inverse_code[code])
+    mean = acc / 8.0
+    if np.issubdtype(out_dtype, np.integer):
+        mean = _quantize(mean, out_dtype)
+    else:
+        mean = mean.to(_mosaic_dtype(out_dtype))
+    return _host_view(mean.cpu().numpy(), out_dtype)
 
 
 def _output_dtype(name: str) -> np.dtype:
@@ -229,14 +362,11 @@ def _output_dtype(name: str) -> np.dtype:
     return dt
 
 
-def _unsupported(mesh, ensemble) -> None:
+def _unsupported(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "mesh= (multi-GPU tile sharding) is not ported yet: ROADMAP A12"
-        )
-    if ensemble:
-        raise NotImplementedError(
-            "ensemble=True (dihedral self-ensemble) is not ported yet: ROADMAP A8"
+            "mesh= (multi-GPU tile sharding, with or without ensemble=True) is not "
+            "ported yet: ROADMAP A12"
         )
 
 
@@ -253,14 +383,16 @@ def dsen2_20(
     """Super-resolve the six 20 m bands to 10 m.
 
     d10: [H, W, 4] (B2, B3, B4, B8); d20: [H/2, W/2, 6]
-    (B5, B6, B7, B8A, B11, B12). Runs on "cuda" unless `device` says
+    (B5, B6, B7, B8A, B11, B12). ensemble=True averages over the 8 dihedral
+    transforms (8x the compute). Runs on "cuda" unless `device` says
     otherwise."""
-    _unsupported(mesh, ensemble)
+    _unsupported(mesh)
     cfg = dsen2_2x(deep)
     infer_cfg = infer_cfg or InferConfig(patch_size=128, border=8)
     if params is None:
         params = default_params(cfg, run_60=False, deep=deep)
-    return _run([d10, d20], 2, cfg, params, infer_cfg, device)
+    run = _run_ensembled if ensemble else _run
+    return run([d10, d20], 2, cfg, params, infer_cfg, device)
 
 
 def dsen2_60(
@@ -275,10 +407,12 @@ def dsen2_60(
     device: Device = None,
 ) -> np.ndarray:
     """Super-resolve the two 60 m bands (B1, B9) to 10 m (patch 192, border
-    12). Runs on "cuda" unless `device` says otherwise."""
-    _unsupported(mesh, ensemble)
+    12). ensemble=True averages over the 8 dihedral transforms. Runs on
+    "cuda" unless `device` says otherwise."""
+    _unsupported(mesh)
     cfg = dsen2_6x(deep)
     infer_cfg = infer_cfg or InferConfig(patch_size=192, border=12)
     if params is None:
         params = default_params(cfg, run_60=True, deep=deep)
-    return _run([d10, d20, d60], 6, cfg, params, infer_cfg, device)
+    run = _run_ensembled if ensemble else _run
+    return run([d10, d20, d60], 6, cfg, params, infer_cfg, device)

@@ -88,21 +88,30 @@ def symmetric_index(n: int, pad: int) -> np.ndarray:
     return np.where(idx >= n, 2 * n - 1 - idx, idx)
 
 
+def _symmetric_index_on(n: int, pad: int, device: torch.device) -> torch.Tensor:
+    """symmetric_index computed on `device`, so that no host array has to
+    cross (a pageable host->device copy waits for the device)."""
+    idx = torch.remainder(torch.arange(-pad, n + pad, device=device), 2 * n)
+    return torch.where(idx >= n, 2 * n - 1 - idx, idx)
+
+
 def pad_symmetric(img: torch.Tensor, pad: int) -> torch.Tensor:
     """np.pad(img, ((pad, pad), (pad, pad), (0, 0)), mode="symmetric") for an
     [H, W, C] tensor, built by index on img's device."""
     h, w = img.shape[:2]
-    iy = torch.as_tensor(symmetric_index(h, pad), device=img.device)
-    ix = torch.as_tensor(symmetric_index(w, pad), device=img.device)
+    iy = _symmetric_index_on(h, pad, img.device)
+    ix = _symmetric_index_on(w, pad, img.device)
     return img.index_select(0, iy).index_select(1, ix)
 
 
-def gather_patches(padded: torch.Tensor, starts: np.ndarray, patch: int) -> torch.Tensor:
-    """[B, patch, patch, C] windows of a padded [H, W, C] tensor at the host
-    (i, j) starts [B, 2]."""
-    ar = np.arange(patch)
-    rows = torch.as_tensor(starts[:, 0, None] + ar, device=padded.device)
-    cols = torch.as_tensor(starts[:, 1, None] + ar, device=padded.device)
+def gather_patches(padded: torch.Tensor, starts, patch: int) -> torch.Tensor:
+    """[B, patch, patch, C] windows of a padded [H, W, C] tensor at the
+    (i, j) starts [B, 2]: a host array, or an integer tensor already on
+    padded's device (then nothing crosses to the device)."""
+    starts = torch.as_tensor(starts, device=padded.device).long()
+    ar = torch.arange(patch, device=padded.device)
+    rows = starts[:, 0, None] + ar
+    cols = starts[:, 1, None] + ar
     return padded[rows[:, :, None], cols[:, None, :]]
 
 

@@ -97,7 +97,10 @@ def _port_files():
 
 def test_port_imports_neither_jax_nor_dsen2_tpu():
     files = _port_files()
-    assert len(files) > 10
+    names = {os.path.relpath(f, REPO) for f in files}
+    assert {"dsen2_tpu_torch/infer/engine.py", "dsen2_tpu_torch/ops/dihedral.py",
+            "dsen2_tpu_torch/infer/metrics.py", "dsen2_tpu_torch/data/mat.py",
+            "dsen2_tpu_torch/cli/demo.py"} <= names
     for path in files:
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)

@@ -159,3 +159,64 @@ def test_s2net_kernels_track_highest(dev, precision, tol, h):
         ref = s2net.apply(params, (x10, x20), cfg, precision="highest", use_kernels=True)
     got = s2net.apply(params, (x10, x20), cfg, precision=precision, use_kernels=None)
     assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+def _engine_case(seed=0):
+    """Two 128-feature blocks (the kernels' width) on a 152 x 96 uint16 scene
+    whose grid has an edge-flush row; patch 32 runs B1 at "high"."""
+    from dsen2_tpu_torch.core.config import InferConfig
+
+    cfg = ModelConfig(in_channels=(4, 6), num_layers=2, feature_size=128)
+    params = s2net.init_params(torch.Generator().manual_seed(seed), cfg)
+    rng = np.random.default_rng(seed)
+    rasters = [(rng.random((152, 96, 4)) * 8000).astype(np.uint16),
+               (rng.random((76, 48, 6)) * 8000).astype(np.uint16)]
+    return cfg, params, rasters, InferConfig(patch_size=32, border=4, batch_size=8,
+                                             precision="high")
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "uint16"])
+@pytest.mark.parametrize("lookahead", [0, 2])
+def test_banded_engine_equals_one_shot_on_card(dev, out_dtype, lookahead):
+    """Windows staged through pinned memory on the copy stream and bands read
+    back on the other give the one-shot mosaic bit for bit."""
+    import dataclasses
+
+    from dsen2_tpu_torch.infer import api, engine
+
+    cfg, params, rasters, icfg = _engine_case()
+    icfg = dataclasses.replace(icfg, output_dtype=out_dtype)
+    before = resblock_chain.fused_resblock_chain.launches
+    got = engine.sr_banded(rasters, 2, cfg, params, icfg, rows_per_band=2,
+                           stage_lookahead=lookahead)
+    assert resblock_chain.fused_resblock_chain.launches > before
+    one = api._run(rasters, 2, cfg, params, icfg, device_output=True).cpu().numpy()
+    np.testing.assert_array_equal(got, api._host_view(one, np.dtype(out_dtype)))
+
+
+def test_banded_generator_closed_early_on_card(dev):
+    from dsen2_tpu_torch.infer import engine
+
+    cfg, params, rasters, icfg = _engine_case(1)
+    bands = engine.sr_banded(rasters, 2, cfg, params, icfg, rows_per_band=1,
+                             device_output=True)
+    band, y0, h = next(bands)
+    bands.close()
+    assert band.is_cuda and y0 == 0 and band.shape[0] == h
+
+
+@pytest.mark.parametrize("threshold", [1, 10**9])
+def test_ensemble_on_card_is_the_mean_of_its_transforms(dev, threshold, monkeypatch):
+    from dsen2_tpu_torch.infer import api
+    from dsen2_tpu_torch.ops.dihedral import dihedral_np, inverse_code
+
+    cfg, params, rasters, icfg = _engine_case(2)
+    monkeypatch.setattr(api, "_BANDED_THRESHOLD_PX", threshold)
+    got = api._run_ensembled(rasters, 2, cfg, params, icfg)
+    want = np.zeros_like(got)
+    for code in range(8):
+        tr = [dihedral_np(r, code) for r in rasters]
+        out = api._run(tr, 2, cfg, params, icfg, device_output=True).cpu().numpy()
+        want += dihedral_np(out, inverse_code[code])
+    want /= np.float32(8)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * np.abs(want).max())

@@ -150,8 +150,6 @@ def test_validate_inputs_rejects_like_jax(case):
 
 def test_unported_options_raise():
     d10, d20 = np.zeros((48, 48, 4), np.float32), np.zeros((24, 24, 6), np.float32)
-    with pytest.raises(NotImplementedError, match="A8"):
-        dsen2_20(d10, d20, ensemble=True, device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
         dsen2_20(d10, d20, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="output_dtype"):
