@@ -25,9 +25,19 @@ Phases, each printing its lines and its seconds:
    bytes read back; the self-ensemble at 3000^2 (banded route) and 2400^2
    (whole-tile route) against the mean of the 8 transformed runs computed
    here; the B2 route (patch 132) banded; and the demo's run_scene on a
-   seeded 600^2 .mat. Both kernels' launch counts must rise;
-5. one {"kernels": [...]} JSON line, launches counted over phases 3 and 4;
-6. the card's name and power limit, then {"ok": true, "device": {...}}.
+   seeded 600^2 .mat. Both kernels' launch counts must rise; the head and
+   tail convs' device time per tile at "high" and "default";
+5. training: the TF32 plane convs of ops/conv.py (forward, dgrad, wgrad) held
+   to the same convs with TF32 off within 1e-6 x max|ref|; fit for DSen2 2x
+   at full width (batch 128 of 32^2 crops, 2 epochs) host-fed at "high" and
+   staged at "default", whose loss must fall; the warm step time, patches/s,
+   peak memory and the convs' share of one profiled step at each class; one
+   step's gradients at "high" and "default" against "highest" (E2E_TOL);
+   1 + 1 resumed epochs against 2 straight; a few steps of the 6x net (96^2
+   crops) and of VDSen2 2x with remat; `cli.train --smoke`. Training runs
+   plain convs, so neither kernel may launch in this phase;
+6. one {"kernels": [...]} JSON line, launches counted over phases 3 and 4;
+7. the card's name and power limit, then {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line. Without a CUDA device,
 or without the dsen2_tpu_torch package beside it, the script fails.
@@ -35,9 +45,12 @@ or without the dsen2_tpu_torch package beside it, the script fails.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -382,6 +395,29 @@ def device_profile(torch, fn, top: int = 0) -> dict:
     return out
 
 
+# The aten ops under which cuDNN runs the plain convs, forward and backward.
+CONV_OPS = ("aten::cudnn_convolution", "aten::convolution_backward")
+
+
+def conv_ms(torch, fn) -> dict:
+    """One call of fn under torch.profiler (host and device): the device ms
+    spent under CONV_OPS ("ms", in "calls" calls) and in all device kernels
+    ("device_ms"), and the profile's key averages ("events")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    convs = [e for e in events if e.key in CONV_OPS]
+    return {"ms": sum(e.device_time_total for e in convs) / 1e3,
+            "calls": sum(e.count for e in convs),
+            "device_ms": sum(e.self_device_time_total for e in events
+                             if e.device_type.name == "CUDA") / 1e3,
+            "events": events}
+
+
 def idle_text(p: dict) -> str:
     if p["busy"] is None:
         return "device idle share not measured (no device events in the trace)"
@@ -442,7 +478,7 @@ def phase_full_tile(torch, api, engine, weights, chain_mod, block_mod, card):
             blocks = chain_mod.fused_resblock_chain.launches
             out, warm, peak = timed(torch, fn)
             blocks = chain_mod.fused_resblock_chain.launches - blocks
-            prof = device_profile(torch, fn, top=10 if (prec, name) == ("high", "banded") else 0)
+            prof = device_profile(torch, fn, top=10 if name == "banded" else 0)
             d2h = moved["d2h"] - d2h0
             print(f"dsen2_20 {FULL_TILE}^2 {prec} {name}: cold {cold:.3f} s, warm {warm:.3f} s, "
                   f"{mp / warm:.2f} MP/s on {card}; peak device memory {peak / 2**30:.2f} GiB; "
@@ -453,6 +489,13 @@ def phase_full_tile(torch, api, engine, weights, chain_mod, block_mod, card):
             check(d2h == (3 * out.nbytes if name == "banded" else 0),
                   f"dsen2_20 {FULL_TILE}^2 {prec} {name} took the wrong route")
             rows[name] = (out, peak)
+        convs = conv_ms(torch, banded)
+        print(f"dsen2_20 {FULL_TILE}^2 {prec} banded: head+tail convs {convs['ms']:.2f} ms "
+              f"per tile in {convs['calls']} cuDNN conv calls (aten::cudnn_convolution, device "
+              f"time with cuDNN's own layout kernels), of {convs['device_ms']:.2f} ms on the "
+              f"device (f32 NCHW convs before they ran at the class, at high: 562.41 ms of "
+              f"convs + 131.17 ms of transposes, PERF.md)",
+              flush=True)
         (b, peak_b), (o, peak_o) = rows["banded"], rows["one-shot"]
         diff = float(np.abs(b - o).max())
         limit = E2E_TOL[prec] * float(np.abs(o).max())
@@ -539,6 +582,293 @@ def phase_full_tile(torch, api, engine, weights, chain_mod, block_mod, card):
     return launches
 
 
+# Phase 5's data: the reference's 2x training crops, N train + val samples.
+TRAIN_N, VAL_N, TRAIN_BATCH = 1024, 128, 128
+
+
+def training_set(seed: int, n: int, hw: int, in_channels):
+    """Seeded crops at the reference's shapes, divided by SCALE as the CLI
+    does: reflectance-like DN in [0, 10000) for every input, and a label
+    that is a fixed smooth function of them (the last input plus a tanh of
+    a fixed mix of the first), so that the loss has something to learn."""
+    from dsen2_tpu_torch.core.bands import SCALE
+
+    rng = np.random.default_rng(seed)
+    xs = [(rng.random((n, hw, hw, c), dtype=np.float32) * 10000 / SCALE).astype(np.float32)
+          for c in in_channels]
+    mix = np.random.default_rng(1000).standard_normal((in_channels[0], in_channels[-1]))
+    label = xs[-1] + 0.25 * np.tanh(xs[0] @ mix.astype(np.float32) - 2.5)
+    return xs, label.astype(np.float32)
+
+
+def split(xs, label, n_train):
+    return (tuple(x[:n_train] for x in xs), label[:n_train],
+            tuple(x[n_train:] for x in xs), label[n_train:])
+
+
+# The class's plane convs on the card against the same plane convs in
+# float64, as a fraction of max|ref|. f32 sums over up to 32768 terms (the
+# chunked wgrad) in any order stay near 5e-6; TF32 rounding of f32 operands
+# costs about 3e-4 (both measured on an H100, PERF.md §6).
+PLANE_TOL = 1e-5
+
+
+def rel_err(a, ref) -> float:
+    return ((a.double() - ref).abs().max() / ref.abs().max()).item()
+
+
+def plane_convs_f64(conv_mod, x, w, g, prec):
+    """(y, dx, dw) of ops/conv.py's class formula with the planes of x, w
+    and g convolved in float64, in conv_mod's NHWC / HWIO layouts."""
+    import torch.nn.functional as F
+
+    xh, xl = (None if p is None else p.double() for p in conv_mod._planes(conv_mod._nchw(x), prec))
+    wh, wl = (None if p is None else p.double() for p in conv_mod._planes(conv_mod._oihw(w), prec))
+    gh, gl = (None if p is None else p.double()
+              for p in conv_mod._planes(conv_mod._nchw(g.contiguous()), prec))
+    terms = [(gh, xh, wh)] + ([(gl, xh, wh), (gh, xl, wl)] if gl is not None else [])
+    y = F.conv2d(xh, wh, padding=1)
+    if xl is not None:
+        y = y + F.conv2d(xl, wh, padding=1) + F.conv2d(xh, wl, padding=1)
+    dx = dw = 0
+    for gp, xp, wp in terms:
+        a, b = conv_mod._grads(gp, xp, wp, (True, True))
+        dx, dw = dx + a, dw + b
+    return y.permute(0, 2, 3, 1), dx.permute(0, 2, 3, 1), dw.permute(2, 3, 1, 0)
+
+
+@contextlib.contextmanager
+def plane_convs_in_f32(conv_mod):
+    """Run ops/conv.py's plane convs with TF32 off instead of on."""
+    saved = conv_mod.tf32_for_bf16_operands
+    conv_mod.tf32_for_bf16_operands = conv_mod.tf32_disabled
+    try:
+        yield
+    finally:
+        conv_mod.tf32_for_bf16_operands = saved
+
+
+def step_times(torch, loop, cfg, params_np, batch, precision, remat=False, steps=10):
+    """ms of each of `steps` warm train_steps on one device-resident batch
+    (CUDA events, after 3 warm-up steps), and the peak device memory."""
+    from dsen2_tpu_torch.core.config import TrainConfig
+    from dsen2_tpu_torch.train.nadam import make_optimizer
+    from dsen2_tpu_torch.weights import params_to_torch
+
+    params = params_to_torch(params_np, "cuda")
+    for t in params.values():
+        for v in t.values():
+            v.requires_grad_()
+    opt = make_optimizer(params, TrainConfig())
+    inputs, target = batch
+
+    def step():
+        return loop.train_step(params, opt, inputs, target, cfg, precision, remat)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, torch.cuda.max_memory_allocated(), step
+
+
+def phase_training(torch, chain_mod, block_mod, card):
+    """Training at full width: the exactness of the TF32 plane convs, fit for
+    DSen2 2x host-fed at "high" and staged at "default", step times and the
+    conv share per class, one step's gradients against "highest", resume
+    against a straight run, the 6x net, VDSen2 with remat and the CLI smoke.
+    Training runs plain convs only, so neither kernel may launch here."""
+    from dsen2_tpu_torch.cli import train as train_cli
+    from dsen2_tpu_torch.core.config import TrainConfig, dsen2_2x, dsen2_6x
+    from dsen2_tpu_torch.models import s2net
+    from dsen2_tpu_torch.ops import conv as conv_mod
+    from dsen2_tpu_torch.train import fit, loop, restore_fit_state
+    from dsen2_tpu_torch.train.losses import mae
+    from dsen2_tpu_torch.weights import params_to_numpy, params_to_torch
+
+    import torch.nn.functional as F
+
+    out_root = os.path.join(HERE, "build", "smoke_train")
+    if os.path.isdir(out_root):
+        shutil.rmtree(out_root)
+    chain_mod.fused_resblock_chain.launches = 0
+    block_mod.fused_resblock.launches = 0
+
+    # The class convs of the planes (forward, dgrad, wgrad) in TF32 against
+    # the same plane convs in float64, at the training steps' conv shapes;
+    # TF32 off and raw f32 operands through TF32 are printed beside them.
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for cin, cout, hw, b in ((10, 128, 32, 128), (128, 128, 32, 128), (128, 6, 32, 128),
+                             (12, 128, 96, 128), (128, 128, 96, 128), (128, 2, 96, 128),
+                             (256, 256, 32, 8)):
+        x = torch.randn((b, hw, hw, cin), generator=gen, device="cuda")
+        w = torch.randn((3, 3, cin, cout), generator=gen, device="cuda") / (9 * cin) ** 0.5
+        g = torch.randn((b, hw, hw, cout), generator=gen, device="cuda")
+        for prec in ("high", "default"):
+            ref = plane_convs_f64(conv_mod, x, w, g, prec)
+            got = [conv_mod._forward(x, w, None, prec),
+                   *conv_mod._backward(g, x, w, prec, True, True)]
+            with plane_convs_in_f32(conv_mod):
+                f32 = [conv_mod._forward(x, w, None, prec),
+                       *conv_mod._backward(g, x, w, prec, True, True)]
+            errs = [rel_err(a, r) for a, r in zip(got, ref)]
+            errs_f32 = [rel_err(a, r) for a, r in zip(f32, ref)]
+            t_tf32 = time_ms(torch, lambda: conv_mod._forward(x, w, None, prec))
+            with plane_convs_in_f32(conv_mod):
+                t_f32 = time_ms(torch, lambda: conv_mod._forward(x, w, None, prec))
+            print(f"plane convs {cin}->{cout} [{b},{hw},{hw}] {prec}: max|diff|/max|ref| against "
+                  f"float64: TF32 y {errs[0]:.2e} dx {errs[1]:.2e} dw {errs[2]:.2e} (limit "
+                  f"{PLANE_TOL}); TF32 off y {errs_f32[0]:.2e} dx {errs_f32[1]:.2e} dw "
+                  f"{errs_f32[2]:.2e}; forward {t_tf32:.3f} ms TF32, {t_f32:.3f} ms TF32 off",
+                  flush=True)
+            check(max(errs) <= PLANE_TOL, f"TF32 plane convs {cin}->{cout} {prec} stray from "
+                  "float64")
+        xc, wc = conv_mod._nchw(x), conv_mod._oihw(w)
+        raw = F.conv2d(xc.double(), wc.double(), padding=1)
+        with conv_mod.tf32_for_bf16_operands():
+            tf32_raw = F.conv2d(xc, wc, padding=1)
+        print(f"  raw f32 operands through TF32, forward: max|diff|/max|ref| "
+              f"{rel_err(tf32_raw, raw):.2e} (what TF32 rounding costs)", flush=True)
+        del x, w, g, ref, got, f32, xc, wc, raw, tf32_raw
+        torch.cuda.empty_cache()
+
+    # DSen2 2x at full width, batch 128, 2 epochs: host-fed at "high",
+    # staged at "default".
+    cfg = dsen2_2x()
+    n_train, n_val = TRAIN_N, VAL_N
+    xs, label = training_set(0, n_train + n_val, 32, cfg.in_channels)
+    data = split(xs, label, n_train)
+    params0 = s2net.init_params(torch.Generator().manual_seed(0), cfg)
+    for prec, staged in (("high", False), ("default", True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, hist = fit(cfg, TrainConfig(batch_size=TRAIN_BATCH), *data, params=params0,
+                      epochs=2, precision=prec, stage_data=staged, verbose=True)
+        wall = time.perf_counter() - t0
+        print(f"fit DSen2 2x {prec} {'staged' if staged else 'host-fed'}: {n_train} + {n_val} "
+              f"crops of 32^2, batch {TRAIN_BATCH}, 2 epochs in {wall:.3f} s (cold); loss "
+              f"{hist['loss']}, val {hist['val_loss']}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        check(np.isfinite(hist["loss"] + hist["val_loss"]).all(), f"fit {prec} losses")
+        check(hist["loss"][1] < hist["loss"][0], f"fit {prec}: the loss did not fall")
+
+    # Step time, throughput, memory and conv share per class.
+    batch = (tuple(torch.as_tensor(x[:TRAIN_BATCH], device="cuda") for x in xs),
+             torch.as_tensor(label[:TRAIN_BATCH], device="cuda"))
+    for prec in ("highest", "high", "default"):
+        times, peak, step = step_times(torch, loop, cfg, params0, batch, prec)
+        ms = statistics.median(times)
+        convs = conv_ms(torch, step)
+        print(f"train step DSen2 2x {prec}, batch {TRAIN_BATCH} x 32^2: {ms:.3f} ms (median of "
+              f"{len(times)} warm steps, CUDA events; min {min(times):.3f}, max "
+              f"{max(times):.3f}), {TRAIN_BATCH / ms * 1e3:.1f} patches/s on {card}; peak "
+              f"device memory {peak / 2**30:.2f} GiB; convs {convs['ms']:.3f} of "
+              f"{convs['device_ms']:.3f} ms device time in one profiled step "
+              f"({100 * convs['ms'] / convs['device_ms']:.1f} %, {convs['calls']} conv calls)",
+              flush=True)
+        if prec == "high":
+            for e in sorted((e for e in convs["events"] if e.device_type.name == "CUDA"),
+                            key=lambda e: -e.self_device_time_total)[:6]:
+                print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+        del step
+    torch.cuda.empty_cache()
+
+    # One step's gradients at each class against "highest".
+    params = params_to_torch(params0, "cuda")
+    leaves = s2net.param_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+
+    def grads(prec):
+        pred = s2net.apply(params, batch[0], cfg, precision=prec)
+        return torch.autograd.grad(mae(pred, batch[1]), leaves)
+
+    ref = grads("highest")
+    for prec in ("high", "default"):
+        worst = max(((a - r).abs().max() / r.abs().max()).item()
+                    for a, r in zip(grads(prec), ref))
+        print(f"one step's gradients {prec} vs highest: worst max|diff|/max|g| over the "
+              f"{len(ref)} parameter tensors {worst:.3e} (limit {E2E_TOL[prec]})", flush=True)
+        check(worst <= E2E_TOL[prec], f"{prec} gradients stray from highest")
+    del params, leaves, ref
+    torch.cuda.empty_cache()
+
+    # Resume: 1 epoch, restore_fit_state, 1 more, against 2 straight, with
+    # cuDNN's deterministic algorithms (its default wgrad may use atomics).
+    n_sub = 3 * TRAIN_BATCH
+    sub = split([x[:n_sub] for x in xs], label[:n_sub], 2 * TRAIN_BATCH)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        kw = dict(params=params0, precision="high", verbose=False)
+        tc_a = TrainConfig(batch_size=TRAIN_BATCH, augment=True, state_every=0,
+                           out_dir=os.path.join(out_root, "resume_a"))
+        st_a, h_a = fit(cfg, tc_a, *sub, epochs=2, **kw)
+        tc_b = dataclasses.replace(tc_a, state_every=1, out_dir=os.path.join(out_root, "resume_b"))
+        fit(cfg, tc_b, *sub, epochs=1, **kw)
+        rs = restore_fit_state(os.path.join(tc_b.out_dir, f"{tc_b.model_nr}state"), cfg, tc_b)
+        kw.pop("params")
+        st_b, h_b = fit(cfg, tc_b, *sub, epochs=2, **kw, **rs)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    pa, pb = params_to_numpy(st_a.params), params_to_numpy(st_b.params)
+    bit_equal = h_a == h_b and all(np.array_equal(pa[t][k], pb[t][k]) for t, k in s2net.PARAM_NAMES)
+    rel = max(float(np.abs(pa[t][k] - pb[t][k]).max() / np.abs(pa[t][k]).max())
+              for t, k in s2net.PARAM_NAMES)
+    print(f"resume 1 + 1 epochs vs 2 straight (high, augment, deterministic algorithms): "
+          f"history {h_b['loss']} vs {h_a['loss']}; bit-equal {bit_equal}; worst params "
+          f"max|diff|/max|p| {rel:.3e}", flush=True)
+    check(bit_equal or (rel <= 1e-5 and np.allclose(h_a["loss"], h_b["loss"], rtol=1e-5)),
+          "resumed run differs from the straight one")
+
+    # The 6x net (96^2 crops, batch 128) and VDSen2 2x (32 x 256, remat,
+    # batch 8): a few steps each.
+    for name, cfg_x, hw, batch_size, n_steps, prec, remat in (
+            ("DSen2 6x", dsen2_6x(), 96, TRAIN_BATCH, 3, "default", False),
+            ("VDSen2 2x", dsen2_2x(deep=True), 32, 8, 4, "high", True)):
+        xs_x, label_x = training_set(1, (n_steps + 1) * batch_size, hw, cfg_x.in_channels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, hist = fit(cfg_x, TrainConfig(batch_size=batch_size),
+                      *split(xs_x, label_x, n_steps * batch_size),
+                      params=s2net.init_params(torch.Generator().manual_seed(1), cfg_x),
+                      epochs=1, precision=prec, remat=remat, verbose=False)
+        wall = time.perf_counter() - t0
+        sub_batch = (tuple(torch.as_tensor(x[:batch_size], device="cuda") for x in xs_x),
+                     torch.as_tensor(label_x[:batch_size], device="cuda"))
+        times, peak, _ = step_times(torch, loop, cfg_x, s2net.init_params(
+            torch.Generator().manual_seed(1), cfg_x), sub_batch, prec, remat, steps=5)
+        ms = statistics.median(times)
+        print(f"fit {name} {prec}{' remat' if remat else ''}: {n_steps} steps of batch "
+              f"{batch_size} x {hw}^2 in {wall:.3f} s (cold), loss {hist['loss']}, val "
+              f"{hist['val_loss']}; warm step {ms:.3f} ms (median of {len(times)}), "
+              f"{batch_size / ms * 1e3:.1f} patches/s, peak device memory "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+        check(np.isfinite(hist["loss"] + hist["val_loss"]).all(), f"fit {name} losses")
+        del xs_x, label_x, sub_batch
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rc = train_cli.main(["--smoke", "--path", os.path.join(out_root, "cli") + "/"])
+    print(f"cli.train --smoke: rc {rc} in {time.perf_counter() - t0:.3f} s", flush=True)
+    check(rc == 0 and os.path.isdir(os.path.join(out_root, "cli", "network_data",
+                                                 "s2_038_state")), "cli.train --smoke")
+
+    launches = {"fused_resblock_chain": chain_mod.fused_resblock_chain.launches,
+                "fused_resblock": block_mod.fused_resblock.launches}
+    print(f"training path launches: {launches} (training runs plain convs only)", flush=True)
+    check(not any(launches.values()), "training launched a residual-block kernel")
+
+
 def main() -> int:
     import torch
 
@@ -580,6 +910,10 @@ def main() -> int:
     full = phase_full_tile(torch, api, engine, weights, resblock_chain, resblock, card)
     launches = {k: n + full[k] for k, n in launches.items()}
     print(f"phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    phase_training(torch, resblock_chain, resblock, card)
+    print(f"phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
 
     main_b1 = res[("chain", (64, 128, 128, 128), "float32", 3)]
     main_b2 = res[("block", (64, 132, 132, 128), "float32", 1)]

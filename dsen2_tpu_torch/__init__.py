@@ -14,6 +14,7 @@ from dsen2_tpu_torch.core import (
     SCALE,
     InferConfig,
     ModelConfig,
+    TrainConfig,
     dsen2_2x,
     dsen2_6x,
 )
@@ -23,6 +24,7 @@ __all__ = [
     "SCALE",
     "InferConfig",
     "ModelConfig",
+    "TrainConfig",
     "dsen2_2x",
     "dsen2_6x",
     "dsen2_20",

@@ -1,9 +1,10 @@
-"""Model and inference configuration dataclasses.
+"""Model, inference and training configuration dataclasses.
 
-Copies of ModelConfig, dsen2_2x, dsen2_6x and InferConfig from
+Copies of ModelConfig, dsen2_2x, dsen2_6x, InferConfig and TrainConfig from
 dsen2_tpu/core/config.py, with the same fields and defaults. The one rename:
 InferConfig.use_pallas is use_kernels here, with the same None/True/False
-tri-state. tests/test_torch_core.py holds the copies equal.
+tri-state. tests/test_torch_core.py and tests/test_torch_train.py hold the
+copies equal.
 """
 
 from __future__ import annotations
@@ -77,6 +78,37 @@ class InferConfig:
     # and "default" wherever the tensors are on a GPU. True asks for them
     # explicitly; False runs plain convs.
     use_kernels: Optional[bool] = None
-    # Mosaic output dtype: "float32", or an integer dtype such as "uint16"
-    # (rounded half to even, then clipped to the dtype's range).
+    # Mosaic output dtype: "float32"; an integer dtype such as "uint16"
+    # (rounded half to even, then clipped to the dtype's range); or
+    # "bfloat16" (rounded to nearest even; an ml_dtypes.bfloat16 array).
     output_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (reference: training/supres_train.py:23-25,130-144,203-209)."""
+
+    lr: float = 1e-4
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    schedule_decay: float = 0.004  # Keras-2 Nadam momentum schedule decay
+    batch_size: int = 128  # 8 for VDSen2 (reference :131,134)
+    epochs: int = 8 * 1024
+    # ReduceLROnPlateau (reference :203-209)
+    plateau_factor: float = 0.5
+    plateau_patience: int = 5
+    plateau_cooldown: int = 20
+    plateau_min_lr: float = 1e-5
+    plateau_min_delta: float = 1e-6
+    val_fraction: float = 0.1
+    seed: int = 0
+    model_nr: str = "s2_038_"
+    out_dir: Optional[str] = None
+    # Periodic full-state (params + Nadam moments + plateau + history)
+    # checkpoint cadence, in epochs (weights/checkpoint.py); 0 disables.
+    state_every: int = 25
+    # Random dihedral (flip/rot90) augmentation of training samples, applied
+    # identically to every input and the label; deterministic per
+    # (seed, epoch), so resume keeps the trajectory.
+    augment: bool = False

@@ -4,9 +4,14 @@ Entry points run on "cuda" unless the caller passes another device; with no
 GPU and no explicit device they raise rather than drift onto the CPU.
 
 cuDNN runs float32 convolutions in TF32 by default, which keeps about three
-decimal digits and belongs to none of the port's accuracy classes. Every plain
-conv and matmul the port owns runs inside `tf32_disabled()`, which restores the
-flags it found; nothing is flipped at import.
+decimal digits and belongs to none of the port's accuracy classes. TF32 stays
+out of every class except as an exact carrier of bf16 operands: a bf16 value
+(8 significant bits, 8-bit exponent) is exactly a TF32 value, and the product
+of two is exact in f32, so a TF32 conv of bf16-valued f32 planes computes the
+bf16 products with f32 sums. Plane convs run inside
+`tf32_for_bf16_operands()`; every other conv and matmul the port owns runs
+inside `tf32_disabled()`. Both restore the flags they found; nothing is
+flipped at import.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from typing import Iterator, Optional, Union
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "tf32_disabled", "upload"]
+__all__ = ["resolve_device", "tf32_disabled", "tf32_for_bf16_operands", "upload"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -34,17 +39,28 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 
 @contextlib.contextmanager
-def tf32_disabled() -> Iterator[None]:
-    """Turn TF32 off for cuDNN convolutions and cuBLAS matmuls inside the
-    block, then restore both flags as they were."""
+def _tf32(on: bool) -> Iterator[None]:
     conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
     try:
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = conv
         torch.backends.cuda.matmul.allow_tf32 = mm
+
+
+def tf32_disabled():
+    """Turn TF32 off for cuDNN convolutions and cuBLAS matmuls inside the
+    block, then restore both flags as they were."""
+    return _tf32(False)
+
+
+def tf32_for_bf16_operands():
+    """Turn TF32 on inside the block, then restore both flags as they were.
+    Only for convs and matmuls whose every operand holds bf16 values (planes
+    from ops/resblock_chain.py::split_planes): there TF32 rounds nothing."""
+    return _tf32(True)
 
 
 def upload(a: np.ndarray, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:

@@ -120,9 +120,13 @@ def _quantize(v: torch.Tensor, out_dtype: np.dtype) -> torch.Tensor:
     return v.to(_mosaic_dtype(out_dtype))
 
 
-def _host_view(a: np.ndarray, out_dtype: np.dtype) -> np.ndarray:
-    """A mosaic read back from the device as out_dtype (a view of the same
-    bytes: unsigned types come back from their signed twin)."""
+def _host_view(t: torch.Tensor, out_dtype: np.dtype) -> np.ndarray:
+    """A mosaic tensor on the host as a numpy array of out_dtype (a view of
+    the same bytes: unsigned types come back from their signed twin, and
+    bfloat16, which numpy has only through ml_dtypes, through int16)."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    a = t.numpy()
     return a if a.dtype == out_dtype else a.view(out_dtype)
 
 
@@ -263,7 +267,7 @@ def _run(
         )
     if device_output:
         return out
-    return _host_view(out.cpu().numpy(), out_dtype)
+    return _host_view(out.cpu(), out_dtype)
 
 
 def _ens_add_band(acc: torch.Tensor, stripe: torch.Tensor, idx: int, *, k: int, f: bool):
@@ -345,19 +349,29 @@ def _run_ensembled(
         mean = _quantize(mean, out_dtype)
     else:
         mean = mean.to(_mosaic_dtype(out_dtype))
-    return _host_view(mean.cpu().numpy(), out_dtype)
+    return _host_view(mean.cpu(), out_dtype)
 
 
 def _output_dtype(name: str) -> np.dtype:
-    """float32, float16 or an integer dtype; numpy has no bfloat16."""
+    """float32, float16, an integer dtype, or bfloat16 as ml_dtypes.bfloat16
+    where ml_dtypes is importable (numpy has no bfloat16 of its own)."""
+    if name == "bfloat16":
+        try:
+            import ml_dtypes
+        except ImportError:
+            raise NotImplementedError(
+                "output_dtype='bfloat16' returns ml_dtypes.bfloat16 arrays; "
+                "ml_dtypes is not installed"
+            ) from None
+        return np.dtype(ml_dtypes.bfloat16)
     try:
         dt = np.dtype(name)
     except TypeError:
         dt = None
     if dt is None or not (np.issubdtype(dt, np.integer) or dt in (np.float32, np.float16)):
         raise NotImplementedError(
-            f"output_dtype={name!r}: the port returns float32, float16 or "
-            "integer mosaics"
+            f"output_dtype={name!r}: the port returns float32, float16, "
+            "bfloat16 or integer mosaics"
         )
     return dt
 

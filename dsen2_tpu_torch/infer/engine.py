@@ -270,7 +270,7 @@ def sr_banded(
             pinned, copied = got
             copied.synchronize()
             got = pinned
-        rows = _host_view(got.numpy(), out_dtype)
+        rows = _host_view(got, out_dtype)
         out[y0 : y0 + band_h] = rows
         return rows.nbytes
 

@@ -10,8 +10,12 @@ The counterpart of dsen2_tpu/models/s2net.py:101-254:
     out = x + inputs[-1]                          # global residual
 
 Activations are NHWC and kernels HWIO, as in the JAX package. The head and
-tail convs are plain PyTorch convs with TF32 off. Routing of the residual
-blocks, for a tensor on a GPU with use_kernels None or True:
+tail convs, and the blocks when no kernel runs them, are the plain class conv
+of ops/conv.py, forward and backward at the requested precision, as the JAX
+package's XLA convs are. Training runs plain convs only (the kernels have no
+backward), with `remat=True` recomputing each block in the backward, the
+counterpart of jax.checkpoint. Routing of the residual blocks, for a tensor on
+a GPU with use_kernels None or True:
 
   - "high" (bf16x3) and "default" (one pass) always run the hand-written
     kernels, at every height and block count: B1 (`fused_resblock_chain`)
@@ -34,18 +38,18 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from dsen2_tpu_torch.core.config import ModelConfig
-from dsen2_tpu_torch.core.device import tf32_disabled
+from dsen2_tpu_torch.ops.conv import PRECISIONS, conv3x3
 from dsen2_tpu_torch.ops.resblock import fused_resblock
 from dsen2_tpu_torch.ops.resblock_chain import fused_resblock_chain
 
 Params = Dict[str, Dict]
 
-__all__ = ["init_params", "apply", "param_count", "summary", "stack_block_params"]
-
-_PRECISIONS = ("highest", "high", "default")
+__all__ = [
+    "init_params", "apply", "param_count", "summary", "stack_block_params", "param_leaves",
+]
 
 
 def _he_uniform(gen: torch.Generator, shape: tuple[int, ...]) -> np.ndarray:
@@ -84,13 +88,6 @@ def stack_block_params(block_list: Sequence[Dict[str, np.ndarray]]) -> Dict[str,
     return {k: np.stack([b[k] for b in block_list]) for k in ("w1", "b1", "w2", "b2")}
 
 
-def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """SAME 3x3 conv + bias of NHWC x by HWIO w, TF32 off."""
-    with tf32_disabled():
-        y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b, padding=1)
-    return y.permute(0, 2, 3, 1).contiguous()
-
-
 def _kernels_on(use_kernels: Optional[bool], precision: str, device: torch.device) -> bool:
     """The use_kernels tri-state: None (AUTO) is on for "high" and
     "default" wherever the tensors are not on the CPU."""
@@ -106,15 +103,18 @@ def apply(
     *,
     precision: str = "highest",
     use_kernels: Optional[bool] = False,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Forward pass. inputs: NHWC tensors (x10, x20_up[, x60_up]), all on the
     10 m grid, already divided by SCALE; params: tensors from
     `weights.params_to_torch`. Returns the NHWC prediction of
-    cfg.out_channels bands (still divided by SCALE)."""
-    if precision not in _PRECISIONS:
-        raise ValueError(f"precision must be one of {_PRECISIONS}, got {precision!r}")
+    cfg.out_channels bands (still divided by SCALE). remat=True recomputes
+    each plain residual block in the backward instead of keeping its
+    activations (torch.utils.checkpoint)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     x = torch.cat(list(inputs), dim=-1)
-    x = torch.relu(_conv(x, params["head"]["w"], params["head"]["b"]))
+    x = torch.relu(conv3x3(x, params["head"]["w"], params["head"]["b"], precision))
     blk = params["blocks"]
     kernels = _kernels_on(use_kernels, precision, x.device)
 
@@ -133,9 +133,12 @@ def apply(
         passes = 1
 
     if not kernels:
+        def block(x, k):
+            t = torch.relu(conv3x3(x, blk["w1"][k], blk["b1"][k], precision))
+            return x + cfg.residual_scale * conv3x3(t, blk["w2"][k], blk["b2"][k], precision)
+
         for k in range(cfg.num_layers):
-            t = torch.relu(_conv(x, blk["w1"][k], blk["b1"][k]))
-            x = x + cfg.residual_scale * _conv(t, blk["w2"][k], blk["b2"][k])
+            x = checkpoint(block, x, k, use_reentrant=False) if remat else block(x, k)
     elif passes == 3 or (cfg.num_layers % 2 == 0 and x.shape[1] % 8 == 0):
         x = fused_resblock_chain(x, blk["w1"], blk["b1"], blk["w2"], blk["b2"],
                                  scale=cfg.residual_scale, passes=passes)
@@ -146,8 +149,19 @@ def apply(
             x = fused_resblock(x, blk["w1"][k], blk["b1"][k], blk["w2"][k], blk["b2"][k],
                                scale=cfg.residual_scale, tile_rows=tile_rows)
 
-    x = _conv(x, params["tail"]["w"], params["tail"]["b"])
+    x = conv3x3(x, params["tail"]["w"], params["tail"]["b"], precision)
     return x + inputs[-1]
+
+
+# The parameters in a fixed order, whatever order a params dict was built in:
+# the optimizer's state is indexed by it.
+PARAM_NAMES = (("head", "w"), ("head", "b"), ("blocks", "w1"), ("blocks", "b1"),
+               ("blocks", "w2"), ("blocks", "b2"), ("tail", "w"), ("tail", "b"))
+
+
+def param_leaves(params: Params) -> list:
+    """params' tensors in PARAM_NAMES order."""
+    return [params[top][name] for top, name in PARAM_NAMES]
 
 
 def param_count(params: Params) -> int:

@@ -12,7 +12,9 @@ order:
 In each directory the reference's .hdf5 name comes before the .npz of the
 same stem (the .npz alone where h5py is not installed). Params are a numpy
 dict (head / blocks / tail, HWIO kernels) as in the JAX package;
-`params_to_torch` carries them onto a device.
+`params_to_torch` carries them onto a device and `params_to_numpy` back, so
+what training writes (`save_params_npz`, `save_keras_weights`) stays
+readable by the JAX package and the reference.
 """
 
 from __future__ import annotations
@@ -27,11 +29,11 @@ import torch
 
 from dsen2_tpu_torch.core.config import ModelConfig
 from dsen2_tpu_torch.models import s2net
-from dsen2_tpu_torch.weights.keras_h5 import load_keras_weights
+from dsen2_tpu_torch.weights.keras_h5 import load_keras_weights, save_keras_weights
 
 __all__ = [
-    "load_keras_weights", "load_params_npz", "default_params",
-    "reference_weight_filename", "params_to_torch",
+    "load_keras_weights", "save_keras_weights", "load_params_npz", "save_params_npz",
+    "default_params", "reference_weight_filename", "params_to_torch", "params_to_numpy",
 ]
 
 # Weight-file naming from the reference (testing/supres.py:57,60).
@@ -100,6 +102,16 @@ def default_params(cfg: ModelConfig, run_60: bool, deep: bool) -> Dict:
     return params
 
 
+def save_params_npz(path: str, params: Dict) -> None:
+    """Flat .npz dump of the params dict (portable, dependency-free; a copy
+    of dsen2_tpu's save_params_npz)."""
+    flat = {}
+    for top, sub in params.items():
+        for name, arr in sub.items():
+            flat[f"{top}.{name}"] = np.asarray(arr)
+    np.savez(path, **flat)
+
+
 def load_params_npz(path: str) -> Dict:
     """Read a flat 'top.name' .npz dump (dsen2_tpu's save_params_npz)."""
     out: Dict = {}
@@ -121,4 +133,16 @@ def params_to_torch(
               .to(device=device, dtype=dtype).contiguous()
               for name, v in sub.items()}
         for top, sub in params_np.items()
+    }
+
+
+def params_to_numpy(params: Dict) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of params_to_torch: a {top: {name: tensor}} dict (any
+    device, with or without grad) -> the same dict of f32 numpy arrays on the
+    host."""
+    return {
+        top: {name: (v.detach().to("cpu", torch.float32).numpy() if torch.is_tensor(v)
+                     else np.asarray(v, np.float32))
+              for name, v in sub.items()}
+        for top, sub in params.items()
     }

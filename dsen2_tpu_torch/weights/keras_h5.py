@@ -1,7 +1,8 @@
-"""Keras-2 HDF5 checkpoint -> numpy params dict.
+"""Keras-2 HDF5 checkpoint <-> numpy params dict.
 
-A copy of the loader in dsen2_tpu/weights/keras_h5.py, which reaches JAX
-through its import of dsen2_tpu.models.s2net. Layout facts (Keras 2.x):
+A copy of the loader and writer in dsen2_tpu/weights/keras_h5.py, which
+reaches JAX through its import of dsen2_tpu.models.s2net. Layout facts
+(Keras 2.x):
 
   - a full-model save nests weights under 'model_weights'; a weights-only
     save puts layer groups at top level
@@ -20,7 +21,7 @@ import numpy as np
 from dsen2_tpu_torch.core.config import ModelConfig
 from dsen2_tpu_torch.models.s2net import stack_block_params
 
-__all__ = ["load_keras_weights"]
+__all__ = ["load_keras_weights", "save_keras_weights"]
 
 
 def _layer_index(name: str) -> tuple[int, int]:
@@ -92,3 +93,41 @@ def load_keras_weights(path: str, cfg: ModelConfig) -> Dict:
         "blocks": {k: v.astype(np.float32) for k, v in stack_block_params(blocks).items()},
         "tail": {"w": tail_k.astype(np.float32), "b": tail_b.astype(np.float32)},
     }
+
+
+def save_keras_weights(path: str, params: Dict) -> None:
+    """Write params as a Keras-2-style weights HDF5 (round-trip format used by
+    the converter tests and for interchange with the reference tooling)."""
+    import h5py
+
+    n_l = int(np.asarray(params["blocks"]["w1"]).shape[0])
+
+    def lname(i: int) -> str:
+        return "conv2d" if i == 0 else f"conv2d_{i}"
+
+    seq: list[tuple[np.ndarray, np.ndarray]] = [
+        (np.asarray(params["head"]["w"]), np.asarray(params["head"]["b"]))
+    ]
+    for i in range(n_l):
+        seq.append((np.asarray(params["blocks"]["w1"][i]), np.asarray(params["blocks"]["b1"][i])))
+        seq.append((np.asarray(params["blocks"]["w2"][i]), np.asarray(params["blocks"]["b2"][i])))
+    seq.append((np.asarray(params["tail"]["w"]), np.asarray(params["tail"]["b"])))
+
+    with h5py.File(path, "w") as f:
+        layer_names = []
+        for i, (k, b) in enumerate(seq):
+            name = lname(i)
+            layer_names.append(name)
+            outer = f.create_group(name)
+            g = outer.create_group(name)
+            g.create_dataset("kernel:0", data=k)
+            g.create_dataset("bias:0", data=b)
+            # Keras-2 load_weights requires these attrs on each layer group
+            outer.attrs["weight_names"] = np.array(
+                [f"{name}/kernel:0".encode(), f"{name}/bias:0".encode()]
+            )
+        # ... and the layer index at the root (Model.load_weights reads
+        # f.attrs['layer_names'] first)
+        f.attrs["layer_names"] = np.array([n.encode() for n in layer_names])
+        f.attrs["backend"] = b"tensorflow"
+        f.attrs["keras_version"] = b"2.2.4"

@@ -13,6 +13,7 @@ import torch
 
 from dsen2_tpu_torch.core.config import ModelConfig
 from dsen2_tpu_torch.models import s2net
+from dsen2_tpu_torch.ops import conv as conv_mod
 from dsen2_tpu_torch.ops import resblock, resblock_chain
 from dsen2_tpu_torch.weights import params_to_torch
 
@@ -190,7 +191,7 @@ def test_banded_engine_equals_one_shot_on_card(dev, out_dtype, lookahead):
     got = engine.sr_banded(rasters, 2, cfg, params, icfg, rows_per_band=2,
                            stage_lookahead=lookahead)
     assert resblock_chain.fused_resblock_chain.launches > before
-    one = api._run(rasters, 2, cfg, params, icfg, device_output=True).cpu().numpy()
+    one = api._run(rasters, 2, cfg, params, icfg, device_output=True).cpu()
     np.testing.assert_array_equal(got, api._host_view(one, np.dtype(out_dtype)))
 
 
@@ -220,3 +221,77 @@ def test_ensemble_on_card_is_the_mean_of_its_transforms(dev, threshold, monkeypa
         want += dihedral_np(out, inverse_code[code])
     want /= np.float32(8)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * np.abs(want).max())
+
+
+def _conv_case(dev, cin, cout, b=4, h=32, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, h, h, cin), generator=gen, device=dev)
+    w = torch.randn((3, 3, cin, cout), generator=gen, device=dev) / (9 * cin) ** 0.5
+    g = torch.randn((b, h, h, cout), generator=gen, device=dev)
+    return x, w, g
+
+
+@pytest.mark.parametrize("cin,cout,hw", [(10, 128, 32), (128, 128, 32), (128, 6, 32),
+                                         (12, 128, 96), (128, 2, 96), (12, 256, 32)])
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_tf32_plane_convs_are_exact(dev, cin, cout, hw, precision):
+    """cuDNN's TF32 convs of bf16-valued planes (forward, dgrad, and the
+    batch-chunked wgrad) equal the same plane convs in float64 within
+    chip_smoke.PLANE_TOL x max|ref|: no operand is rounded (that would cost
+    about 3e-4) and the f32 sums stay short."""
+    import chip_smoke
+
+    x, w, g = _conv_case(dev, cin, cout, b=64 if hw == 32 else 16, h=hw)
+    ref = chip_smoke.plane_convs_f64(conv_mod, x, w, g, precision)
+    got = [conv_mod._forward(x, w, None, precision),
+           *conv_mod._backward(g, x, w, precision, True, True)]
+    for name, a, r in zip(("y", "dx", "dw"), got, ref):
+        err = chip_smoke.rel_err(a, r)
+        assert err <= chip_smoke.PLANE_TOL, (name, err)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_training_step_gradients_track_highest(dev, precision):
+    """One step's parameter gradients of the MAE loss, DSen2 2x at full
+    width on the first batch of chip_smoke.py's training set, at each class
+    against "highest" (chip_smoke.E2E_TOL)."""
+    import chip_smoke
+    from dsen2_tpu_torch.core.config import dsen2_2x
+    from dsen2_tpu_torch.train.losses import mae
+
+    cfg = dsen2_2x()
+    xs, label = chip_smoke.training_set(0, chip_smoke.TRAIN_N + chip_smoke.VAL_N, 32,
+                                        cfg.in_channels)
+    b = chip_smoke.TRAIN_BATCH
+    inputs = [torch.as_tensor(x[:b], device=dev) for x in xs]
+    target = torch.as_tensor(label[:b], device=dev)
+    params = params_to_torch(s2net.init_params(torch.Generator().manual_seed(0), cfg), dev)
+    leaves = s2net.param_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+
+    def grads(p):
+        return torch.autograd.grad(mae(s2net.apply(params, inputs, cfg, precision=p), target),
+                                   leaves)
+
+    for a, r in zip(grads(precision), grads("highest")):
+        assert (a - r).abs().max().item() <= chip_smoke.E2E_TOL[precision] * r.abs().max().item()
+
+
+def test_fit_on_card_staged_equals_host_fed(dev):
+    from dsen2_tpu_torch.core.config import TrainConfig
+    from dsen2_tpu_torch.train import fit
+
+    cfg = ModelConfig(in_channels=(4, 6), num_layers=2, feature_size=128)
+    rng = np.random.default_rng(7)
+    x10 = rng.random((48, 32, 32, 4), dtype=np.float32)
+    x20 = rng.random((48, 32, 32, 6), dtype=np.float32)
+    lb = (x20 * 1.2 + 0.1 * x10[..., :1]).astype(np.float32)
+    data = (x10[:32], x20[:32]), lb[:32], (x10[32:], x20[32:]), lb[32:]
+    tcfg = TrainConfig(batch_size=16, augment=True)
+    params = s2net.init_params(torch.Generator().manual_seed(8), cfg)
+    _, h_host = fit(cfg, tcfg, *data, params=params, epochs=2, verbose=False)
+    _, h_st = fit(cfg, tcfg, *data, params=params, epochs=2, verbose=False, stage_data=True)
+    assert np.isfinite(h_host["loss"]).all()
+    np.testing.assert_allclose(h_st["loss"], h_host["loss"], rtol=1e-4)
+    np.testing.assert_allclose(h_st["val_loss"], h_host["val_loss"], rtol=1e-4)

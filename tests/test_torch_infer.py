@@ -152,9 +152,49 @@ def test_unported_options_raise():
     d10, d20 = np.zeros((48, 48, 4), np.float32), np.zeros((24, 24, 6), np.float32)
     with pytest.raises(NotImplementedError, match="A12"):
         dsen2_20(d10, d20, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="output_dtype"):
-        dsen2_20(d10, d20, infer_cfg=InferConfig(patch_size=32, border=4,
-                                                 output_dtype="bfloat16"), device="cpu")
+
+
+def _bf16_run(d10, d20, params, out_dtype="bfloat16"):
+    kw = dict(patch_size=32, border=4, batch_size=3, precision="highest", output_dtype=out_dtype)
+    want = dsen2_tpu.dsen2_20(d10, d20, params=params, infer_cfg=JInferConfig(**kw))
+    got = dsen2_20(d10, d20, params=params, infer_cfg=InferConfig(**kw), device="cpu")
+    return got, want
+
+
+def test_bfloat16_output_bit_equal_to_jax(rng):
+    """Zero kernels, random biases and 20 m values in {0, 30000, 60000}
+    (multiples of INTERP_NORM) make every f32 step exact in both packages
+    (the bilinear sums hold few bits; the rest is elementwise), so the
+    bfloat16 mosaics, rounded to nearest even from f32, agree bit for bit."""
+    ml_dtypes = pytest.importorskip("ml_dtypes")
+    d10 = (rng.random((56, 56, 4)) * 9000).astype(np.uint16)
+    d20 = (rng.integers(0, 3, (28, 28, 6)) * 30000).astype(np.uint16)
+    shipped = weights.load_params_npz(NPZ_2X)
+    params = {top: {k: np.zeros_like(v) if k.startswith("w") else
+                    rng.standard_normal(v.shape).astype(np.float32)
+                    for k, v in sub.items()} for top, sub in shipped.items()}
+    got, want = _bf16_run(d10, d20, params)
+    assert got.dtype == want.dtype == np.dtype(ml_dtypes.bfloat16) and got.shape == (56, 56, 6)
+    assert len(np.unique(got)) > 100
+    np.testing.assert_array_equal(got.view(np.uint16), want.view(np.uint16))
+
+
+def test_bfloat16_output_rounds_the_float32_mosaic(rng):
+    """With the shipped weights the two packages' f32 mosaics agree within
+    rtol 2e-4 and atol 0.5 DN (_assert_close), so their bfloat16 roundings
+    may differ by one bfloat16 step (at most 2**-7 of the value) where a
+    value straddles a rounding boundary; the port's bfloat16 mosaic is its
+    own f32 mosaic rounded to nearest even, bit for bit."""
+    ml_dtypes = pytest.importorskip("ml_dtypes")
+    d10, d20 = _scene(rng, 56, 2, np.uint16)
+    params = weights.load_params_npz(NPZ_2X)
+    got, want = _bf16_run(d10, d20, params)
+    f32, _ = _bf16_run(d10, d20, params, "float32")
+    np.testing.assert_array_equal(got.view(np.uint16),
+                                  f32.astype(ml_dtypes.bfloat16).view(np.uint16))
+    g, w = got.astype(np.float64), want.astype(np.float64)
+    np.testing.assert_allclose(g, w, rtol=2 ** -7 + 2e-4, atol=0.5)
+    assert np.mean(g == w) > 0.99
 
 
 def test_entry_points_need_a_gpu_unless_told(monkeypatch):
