@@ -28,7 +28,7 @@ Phases, each printing its lines and its seconds:
    seeded 600^2 .mat. Both kernels' launch counts must rise; the head and
    tail convs' device time per tile at "high" and "default";
 5. training: the TF32 plane convs of ops/conv.py (forward, dgrad, wgrad) held
-   to the same convs with TF32 off within 1e-6 x max|ref|; fit for DSen2 2x
+   to the same plane convs in float64 within PLANE_TOL x max|ref|; fit for DSen2 2x
    at full width (batch 128 of 32^2 crops, 2 epochs) host-fed at "high" and
    staged at "default", whose loss must fall; the warm step time, patches/s,
    peak memory and the convs' share of one profiled step at each class; one
@@ -36,8 +36,21 @@ Phases, each printing its lines and its seconds:
    1 + 1 resumed epochs against 2 straight; a few steps of the 6x net (96^2
    crops) and of VDSen2 2x with remat; `cli.train --smoke`. Training runs
    plain convs, so neither kernel may launch in this phase;
-6. one {"kernels": [...]} JSON line, launches counted over phases 3 and 4;
-7. the card's name and power limit, then {"ok": true, "device": {...}}.
+6. the production CLIs: whether the host has GDAL and Pillow with JPEG 2000;
+   s2_supres --run_60 --output-dtype uint16 on a seeded full 10980^2 L1C
+   product held in memory and read through safe_reader's GDAL seam (read,
+   SR 6x, SR 2x and write seconds, wall, file size, and one profiled run's
+   device idle share), its GeoTIFF's SR bands bit-equal to dsen2_20 /
+   dsen2_60 on the same arrays, with the product's EPSG code and tiepoint,
+   through the banded engine; the same on a seeded JP2 product through the
+   Pillow backend at a pixel and a lon/lat ROI (or a line saying the JP2
+   decoder is absent); create_patches on a seeded .mat scene, then
+   --make-val-index and one streamed epoch of cli.train --stream at full
+   width ("default"; finite loss, no kernel launch); convert_weights
+   round-tripping the shipped DSen2 .npz. B1 must launch in every s2_supres
+   run;
+7. one {"kernels": [...]} JSON line, launches counted over phases 3, 4 and 6;
+8. the card's name and power limit, then {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line. Without a CUDA device,
 or without the dsen2_tpu_torch package beside it, the script fails.
@@ -747,6 +760,7 @@ def phase_training(torch, chain_mod, block_mod, card):
     xs, label = training_set(0, n_train + n_val, 32, cfg.in_channels)
     data = split(xs, label, n_train)
     params0 = s2net.init_params(torch.Generator().manual_seed(0), cfg)
+    rates = {}
     for prec, staged in (("high", False), ("default", True)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -754,8 +768,10 @@ def phase_training(torch, chain_mod, block_mod, card):
         _, hist = fit(cfg, TrainConfig(batch_size=TRAIN_BATCH), *data, params=params0,
                       epochs=2, precision=prec, stage_data=staged, verbose=True)
         wall = time.perf_counter() - t0
+        rates[prec] = 2 * n_train / wall
         print(f"fit DSen2 2x {prec} {'staged' if staged else 'host-fed'}: {n_train} + {n_val} "
-              f"crops of 32^2, batch {TRAIN_BATCH}, 2 epochs in {wall:.3f} s (cold); loss "
+              f"crops of 32^2, batch {TRAIN_BATCH}, 2 epochs in {wall:.3f} s (cold, "
+              f"{rates[prec]:.1f} train patches/s with val and set-up); loss "
               f"{hist['loss']}, val {hist['val_loss']}; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
         check(np.isfinite(hist["loss"] + hist["val_loss"]).all(), f"fit {prec} losses")
@@ -867,6 +883,318 @@ def phase_training(torch, chain_mod, block_mod, card):
                 "fused_resblock": block_mod.fused_resblock.launches}
     print(f"training path launches: {launches} (training runs plain convs only)", flush=True)
     check(not any(launches.values()), "training launched a residual-block kernel")
+    return rates["default"]
+
+
+# Phase 6: the production CLIs. An L1C product's bands per resolution, in the
+# order and with the descriptions of GDAL's SENTINEL2 driver.
+PRODUCT_BANDS = {10: ("B4", "B3", "B2", "B8"), 20: ("B5", "B6", "B7", "B8A", "B11", "B12"),
+                 60: ("B1", "B9", "B10")}
+WAVELENGTH_NM = {"B1": 443, "B2": 490, "B3": 560, "B4": 665, "B5": 705, "B6": 740, "B7": 783,
+                 "B8": 842, "B8A": 865, "B9": 945, "B10": 1375, "B11": 1610, "B12": 2190}
+PRODUCT_EPSG, PRODUCT_ULX, PRODUCT_ULY = 32633, 399960.0, 5000040.0
+# The JP2 product's 10 m side (encoding it takes seconds) and its ROI, inclusive.
+JP2_SIZE, JP2_ROI = 1200, (120, 240, 839, 959)
+# The .mat scene create_patches cuts into training crops.
+PATCH_SCENE = 1200
+
+
+def product_rasters(seed: int, h10: int, base: int = 0):
+    """Seeded uint16 rasters of an L1C product: 4, 6 and 3 bands on the 10,
+    20 and 60 m grids, tiled from a `base` px scene when base is given."""
+    d10, d20, d60 = tiled_scene(seed, h10, base) if base else synthetic_scene(seed, h10)
+    return d10, d20, np.concatenate([d60, d60[:, :, :1]], axis=2)
+
+
+class _MemoryBand:
+    def __init__(self, desc: str):
+        self._desc = desc
+
+    def GetDescription(self) -> str:
+        return self._desc
+
+
+class _MemoryRaster:
+    """One resolution of the product, a GDAL dataset's read surface over an
+    [H, W, C] array."""
+
+    def __init__(self, arr: np.ndarray, res: int):
+        self._chw = np.moveaxis(arr, -1, 0)
+        self._res = res
+        self.RasterCount, self.RasterYSize, self.RasterXSize = self._chw.shape
+
+    def GetRasterBand(self, i: int) -> _MemoryBand:
+        b = PRODUCT_BANDS[self._res][i - 1]
+        return _MemoryBand(f"{b}, central wavelength {WAVELENGTH_NM[b]} nm")
+
+    def GetGeoTransform(self) -> tuple:
+        return (PRODUCT_ULX, float(self._res), 0.0, PRODUCT_ULY, 0.0, -float(self._res))
+
+    def GetProjection(self) -> str:
+        return f'PROJCS["WGS 84 / UTM zone 33N",AUTHORITY["EPSG","{PRODUCT_EPSG}"]]'
+
+    def ReadAsArray(self, xoff, yoff, xsize, ysize, buf_xsize=None, buf_ysize=None):
+        return self._chw[:, yoff:yoff + ysize, xoff:xoff + xsize]
+
+
+def gdal_product(d10, d20, d60):
+    """A stand-in `osgeo.gdal` module serving (d10, d20, d60) as an L1C
+    product with three resolution subdatasets, as GDAL's SENTINEL2 driver
+    presents one (tests/test_safe_cli_e2e.py drives the same seam), and with
+    no GTiff driver, so that write_bands takes the built-in GeoTIFF writer.
+    Returns (module, product name)."""
+    import types
+
+    name = "MEMORY_MTD_MSIL1C.xml"
+    subs = {f"SENTINEL2_L1C:{name}:{res}m:EPSG_{PRODUCT_EPSG}": (
+        f"Bands {', '.join(PRODUCT_BANDS[res])} with {res}m resolution, UTM 33N",
+        _MemoryRaster(arr, res)) for res, arr in ((10, d10), (20, d20), (60, d60))}
+    product = types.SimpleNamespace(
+        GetSubDatasets=lambda: [(k, desc) for k, (desc, _) in subs.items()])
+    gdal = types.ModuleType("osgeo.gdal")
+    gdal.Open = lambda n: product if n == name else subs[n][1] if n in subs else None
+    gdal.GetDriverByName = lambda n: None
+    gdal.DCAP_CREATE = "DCAP_CREATE"
+    return gdal, name
+
+
+@contextlib.contextmanager
+def installed_gdal(gdal):
+    """Make `gdal` the importable osgeo.gdal inside the block."""
+    import types
+
+    osgeo = types.ModuleType("osgeo")
+    osgeo.gdal = gdal
+    saved = {k: sys.modules.get(k) for k in ("osgeo", "osgeo.gdal")}
+    sys.modules["osgeo"], sys.modules["osgeo.gdal"] = osgeo, gdal
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+@contextlib.contextmanager
+def timed_calls(*targets):
+    """Wrap each (module, name) function so that the wall seconds of its
+    calls are appended to the yielded dict under `name`; restore them after."""
+    times, saved = {}, []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+
+        def wrapper(*a, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            times.setdefault(_name, []).append(time.perf_counter() - t0)
+            return out
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrapper)
+    try:
+        yield times
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check_geotiff(read_tiff, path, sr20, sr60, xmin, ymin, what):
+    """The SR bands of a GeoTIFF written by s2_supres equal sr20 then sr60 bit
+    for bit, in the product's CRS with the ROI's corner as the tiepoint."""
+    t = read_tiff(path)
+    names = t["descriptions"]
+    check(len(names) == sr20.shape[2] + sr60.shape[2] and all(n.startswith("SR") for n in names),
+          f"{what}: bands {names}")
+    for i, n in enumerate(names):
+        want = sr20[:, :, i] if i < sr20.shape[2] else sr60[:, :, i - sr20.shape[2]]
+        check(t["bands"][n].dtype == want.dtype and np.array_equal(t["bands"][n], want),
+              f"{what}: band {n} differs from the API's")
+    check(t["geokeys"].get(3072) == PRODUCT_EPSG, f"{what}: GeoKey EPSG {t['geokeys']}")
+    check(t["tiepoint"][3:5] == [PRODUCT_ULX + 10 * xmin, PRODUCT_ULY - 10 * ymin]
+          and t["pixel_scale"] == [10.0, 10.0, 0.0], f"{what}: tiepoint {t['tiepoint']}")
+    return t
+
+
+def phase_production(torch, api, engine, weights, chain_mod, block_mod, card, staged_rate):
+    """The production entry points on the card: s2_supres on a full 10980^2
+    product held in memory (through safe_reader's GDAL seam) and on a JP2
+    product through the Pillow backend, create_patches into cli.train
+    --stream, and convert_weights. Returns the kernels' launches in the CLI
+    runs."""
+    import importlib.util
+
+    import scipy.io
+
+    from dsen2_tpu_torch.cli import convert_weights, create_patches, s2_supres
+    from dsen2_tpu_torch.cli import train as train_cli
+    from dsen2_tpu_torch.core.config import InferConfig
+    from dsen2_tpu_torch.data import safe_pil, safe_reader
+    from dsen2_tpu_torch.geo.utm import utm_inverse
+    from dsen2_tpu_torch.io import writers
+    from dsen2_tpu_torch.train import loop
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from safe_product import build_safe
+    from tiff_reader import read_tiff
+
+    pillow = importlib.util.find_spec("PIL") is not None
+    has_jp2 = safe_pil.available()
+    print(f"host: GDAL (osgeo) {'present' if importlib.util.find_spec('osgeo') else 'absent'}; "
+          f"Pillow {__import__('PIL').__version__ if pillow else 'absent'}, JPEG 2000 "
+          f"{'readable' if has_jp2 else 'not readable'}", flush=True)
+
+    out_dir = os.path.join(HERE, "build", "smoke_cli")
+    if os.path.isdir(out_dir):
+        shutil.rmtree(out_dir)
+    os.makedirs(out_dir)
+    launches = {"fused_resblock_chain": 0, "fused_resblock": 0}
+
+    def run_cli(argv):
+        """s2_supres.main(argv), its wall s and the kernels' launches in it."""
+        chain_mod.fused_resblock_chain.launches = 0
+        block_mod.fused_resblock.launches = 0
+        t0 = time.perf_counter()
+        rc = s2_supres.main(argv)
+        wall = time.perf_counter() - t0
+        got = {"fused_resblock_chain": chain_mod.fused_resblock_chain.launches,
+               "fused_resblock": block_mod.fused_resblock.launches}
+        for k, n in got.items():
+            launches[k] += n
+        check(rc == 0, f"s2_supres {argv} returned {rc}")
+        check(got["fused_resblock_chain"] > 0, f"s2_supres {argv} did not launch B1")
+        return wall, got
+
+    # The full product, in memory, through the GDAL seam.
+    t0 = time.perf_counter()
+    d10, d20, d60 = product_rasters(4, FULL_TILE, TILE_BASE)
+    gdal, name = gdal_product(d10, d20, d60)
+    print(f"product {FULL_TILE}^2: {sum(a.nbytes for a in (d10, d20, d60))} B of uint16 in "
+          f"{d10.shape[2]} + {d20.shape[2]} + {d60.shape[2]} bands, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    tif = os.path.join(out_dir, "full.tif")
+    argv = [name, tif, "--run_60", "--output-dtype", "uint16"]
+    d2h0 = engine.transfer_bytes["d2h"]
+    with installed_gdal(gdal), timed_calls((safe_reader, "read_safe"), (api, "dsen2_60"),
+                                           (api, "dsen2_20"), (writers, "write_bands")) as parts:
+        wall, got = run_cli(argv)
+    d2h = engine.transfer_bytes["d2h"] - d2h0
+    size = os.path.getsize(tif)
+    other = wall - sum(v[0] for v in parts.values())
+    print(f"s2_supres {FULL_TILE}^2 --run_60 uint16 on {card}: wall {wall:.3f} s = read "
+          f"{parts['read_safe'][0]:.3f} s + SR 6x {parts['dsen2_60'][0]:.3f} s + SR 2x "
+          f"{parts['dsen2_20'][0]:.3f} s + write {parts['write_bands'][0]:.3f} s + other "
+          f"{other:.3f} s; GeoTIFF {size} B; read back by the engine {d2h} B; launches {got}",
+          flush=True)
+    check(d2h == FULL_TILE * FULL_TILE * 8 * 2, "s2_supres did not take the banded engine")
+    cfg20 = InferConfig(patch_size=128, border=8, output_dtype="uint16")
+    cfg60 = InferConfig(patch_size=192, border=12, output_dtype="uint16")
+    sr60 = api.dsen2_60(d10, d20, d60[:, :, :2], infer_cfg=cfg60)
+    sr20 = api.dsen2_20(d10, d20, infer_cfg=cfg20)
+    t0 = time.perf_counter()
+    check_geotiff(read_tiff, tif, sr20, sr60, 0, 0, f"s2_supres {FULL_TILE}^2")
+    print(f"s2_supres {FULL_TILE}^2: the 8 SR bands equal dsen2_20 / dsen2_60 on the same "
+          f"arrays bit for bit; EPSG {PRODUCT_EPSG}, tiepoint of the product (checked in "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    del sr20, sr60
+    with installed_gdal(gdal):
+        prof = device_profile(torch, lambda: run_cli(argv))
+    print(f"s2_supres {FULL_TILE}^2 profiled: {idle_text(prof)}", flush=True)
+    del d10, d20, d60, gdal
+
+    # A JP2 product through the Pillow backend, at a pixel and a lon/lat ROI.
+    if not has_jp2:
+        print("jp2 decoder: absent on this machine", flush=True)
+    else:
+        t0 = time.perf_counter()
+        mtd, arrays = build_safe(os.path.join(out_dir, "jp2"), np.random.default_rng(5),
+                                 h10=JP2_SIZE, epsg=PRODUCT_EPSG, ulx=PRODUCT_ULX,
+                                 uly=PRODUCT_ULY)
+        print(f"JP2 product {JP2_SIZE}^2 (13 bands) encoded in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        x0, y0, x1, y1 = JP2_ROI
+        corners = (*utm_inverse(PRODUCT_ULX + (x0 + 0.5) * 10, PRODUCT_ULY - (y0 + 0.5) * 10,
+                                PRODUCT_EPSG % 100, True),
+                   *utm_inverse(PRODUCT_ULX + (x1 + 0.5) * 10, PRODUCT_ULY - (y1 + 0.5) * 10,
+                                PRODUCT_EPSG % 100, True))
+
+        def window(res):
+            f = res // 10
+            return np.stack([arrays[b][y0 // f:(y1 + 1) // f, x0 // f:(x1 + 1) // f]
+                             for b in PRODUCT_BANDS[res][:2 if res == 60 else None]], axis=-1)
+
+        sr60 = api.dsen2_60(window(10), window(20), window(60),
+                            infer_cfg=InferConfig(patch_size=192, border=12))
+        sr20 = api.dsen2_20(window(10), window(20), infer_cfg=InferConfig(patch_size=128,
+                                                                          border=8))
+        for how, flags in (("roi_x_y", ["--roi_x_y", f"{x0},{y0},{x1},{y1}"]),
+                           ("roi_lon_lat", ["--roi_lon_lat", ",".join(map(repr, corners))])):
+            tif = os.path.join(out_dir, f"jp2_{how}.tif")
+            wall, got = run_cli([mtd, tif, "--run_60", *flags])
+            check_geotiff(read_tiff, tif, sr20, sr60, x0, y0, f"s2_supres JP2 --{how}")
+            print(f"s2_supres JP2 {JP2_SIZE}^2 --{how} ({x1 - x0 + 1}^2 px, float32): wall "
+                  f"{wall:.3f} s; SR bands equal the API's bit for bit; launches {got}",
+                  flush=True)
+
+    # create_patches on a .mat scene, then one streamed epoch at full width.
+    prefix = os.path.join(HERE, "build", "smoke_patches")
+    if os.path.isdir(prefix):
+        shutil.rmtree(prefix)
+    os.makedirs(prefix)
+    im10, im20, im60 = synthetic_scene(6, PATCH_SCENE)
+    mat = os.path.join(prefix, f"SYNTH_{PATCH_SCENE}.mat")
+    scipy.io.savemat(mat, {"im10": im10, "im20": im20, "im60": im60})
+    t0 = time.perf_counter()
+    rc = create_patches.main([mat, "--save_prefix", prefix + "/", "--seed", "0"])
+    t_cp = time.perf_counter() - t0
+    rc_val = create_patches.main(["--make-val-index", "--save_prefix", prefix + "/"])
+    tile = os.path.join(prefix, "train", f"SYNTH_{PATCH_SCENE}.SAFE")
+    check(rc == 0 and rc_val == 0 and os.path.isfile(os.path.join(tile, "data20_gt.npy"))
+          and os.path.isfile(os.path.join(prefix, "train", "val_index.npy")),
+          "create_patches or --make-val-index")
+    print(f"create_patches {PATCH_SCENE}^2 .mat: {t_cp:.3f} s for "
+          f"{np.load(os.path.join(tile, 'data10.npy'), mmap_mode='r').shape[0]} crops", flush=True)
+
+    seen = {}
+    fit = loop.fit
+
+    def recording_fit(cfg, tcfg, train_inputs, *a, **kw):
+        t0 = time.perf_counter()
+        out = fit(cfg, tcfg, train_inputs, *a, **kw)
+        seen.update(wall=time.perf_counter() - t0, history=out[1], n_train=train_inputs.n_train)
+        return out
+
+    chain_mod.fused_resblock_chain.launches = 0
+    block_mod.fused_resblock.launches = 0
+    loop.fit = recording_fit
+    try:
+        rc = train_cli.main(["--path", prefix + "/", "--stream", "--epochs", "1",
+                             "--precision", "default", "--model-nr", "s2_601_"])
+    finally:
+        loop.fit = fit
+    hist = seen["history"]
+    trained = {"fused_resblock_chain": chain_mod.fused_resblock_chain.launches,
+               "fused_resblock": block_mod.fused_resblock.launches}
+    print(f"cli.train --stream DSen2 2x default, 1 epoch: {seen['n_train']} train patches in "
+          f"{seen['wall']:.3f} s ({seen['n_train'] / seen['wall']:.1f} patches/s with val and "
+          f"set-up; phase 5 staged default: {staged_rate:.1f}); loss {hist['loss']}, val "
+          f"{hist['val_loss']}; launches {trained}", flush=True)
+    check(rc == 0 and np.isfinite(hist["loss"] + hist["val_loss"]).all(),
+          "cli.train --stream loss")
+    check(not any(trained.values()), "streamed training launched a residual-block kernel")
+
+    src = os.path.join(HERE, "models", "s2_032_lr_1e-04.npz")
+    dst = os.path.join(out_dir, "s2_032_roundtrip.npz")
+    rc = convert_weights.main([src, dst])
+    a, b = weights.load_params_npz(src), weights.load_params_npz(dst)
+    same = a.keys() == b.keys() and all(
+        a[t].keys() == b[t].keys() and all(np.array_equal(a[t][k], b[t][k]) for k in a[t])
+        for t in a)
+    print(f"convert_weights .npz -> .npz round trip: rc {rc}, bit-equal {same} (.hdf5 needs "
+          f"h5py; tests/test_torch_io.py holds it to the JAX CLI)", flush=True)
+    check(rc == 0 and same, "convert_weights round trip")
+    return launches
 
 
 def main() -> int:
@@ -912,8 +1240,14 @@ def main() -> int:
     print(f"phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    phase_training(torch, resblock_chain, resblock, card)
+    staged_rate = phase_training(torch, resblock_chain, resblock, card)
     print(f"phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    cli = phase_production(torch, api, engine, weights, resblock_chain, resblock, card,
+                           staged_rate)
+    launches = {k: n + cli[k] for k, n in launches.items()}
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s", flush=True)
 
     main_b1 = res[("chain", (64, 128, 128, 128), "float32", 3)]
     main_b2 = res[("block", (64, 132, 132, 128), "float32", 1)]

@@ -12,8 +12,9 @@ plateau LR and best-val checkpoints to
 <path>/network_data/{model_nr}lr_{lr:.0e}.npz (and .hdf5 where h5py is
 installed): the reference's layout and names. --resume takes a Keras .hdf5
 (where h5py is installed) or an .npz of weights, or a full-state directory
-written by a previous run of the port (exact-trajectory resume).
---stream is not ported yet (ROADMAP A11).
+written by a previous run of the port (exact-trajectory resume). --stream
+reads the tile archives off disk one tile at a time
+(data/streaming.py::StreamingPatchDataset) instead of loading them in RAM.
 
 Usage:
   python -m dsen2_tpu_torch.cli.train --smoke [--path DIR]
@@ -84,7 +85,8 @@ def main(argv=None, device=None) -> int:
     ap.add_argument("--stage-data", action="store_true",
                     help="put the dataset on the device once and index it there")
     ap.add_argument("--stream", action="store_true",
-                    help="stream tile archives off disk (not ported yet)")
+                    help="stream tile archives off disk instead of loading "
+                    "all patches in RAM (for datasets beyond host memory)")
     ap.add_argument("--smoke", action="store_true",
                     help="2-epoch training on synthetic data (self-test)")
     args = ap.parse_args(argv)
@@ -117,12 +119,6 @@ def main(argv=None, device=None) -> int:
 
     if args.predict_file:
         return _predict(args, cfg, device)
-
-    if args.stream:
-        raise NotImplementedError(
-            "--stream: streaming tile archives (data/streaming.py) is not ported "
-            "yet (ROADMAP A11); drop --stream to load the patches in RAM"
-        )
 
     from dsen2_tpu_torch.data.patches_dataset import open_data_files
     from dsen2_tpu_torch.train.loop import fit
@@ -225,8 +221,20 @@ def main(argv=None, device=None) -> int:
         resume_kwargs["params"] = params
 
     print("Loading the training data...")
-    train_in, train_lb, val_in, val_lb = open_data_files(args.path, args.run_60, SCALE)
-    print(f"Loaded {train_lb.shape[0]} train / {val_lb.shape[0]} val patches.")
+    if args.stream:
+        from dsen2_tpu_torch.data.streaming import StreamingPatchDataset
+
+        # One seed domain for the run: the streaming batch order draws from
+        # the same seed as init, shuffling and augmentation.
+        train_in = StreamingPatchDataset(args.path, args.run_60, SCALE, seed=tcfg.seed)
+        train_lb = val_in = val_lb = None
+        print(
+            f"Streaming {train_in.n_train} train / {train_in.n_val} val "
+            f"patches from {len(train_in.dsets)} tiles."
+        )
+    else:
+        train_in, train_lb, val_in, val_lb = open_data_files(args.path, args.run_60, SCALE)
+        print(f"Loaded {train_lb.shape[0]} train / {val_lb.shape[0]} val patches.")
     fit(cfg, tcfg, train_in, train_lb, val_in, val_lb,
         epochs=args.epochs, remat=args.deep, precision=args.precision,
         stage_data=args.stage_data, device=device, **resume_kwargs)
@@ -235,13 +243,13 @@ def main(argv=None, device=None) -> int:
 
 def _predict(args, cfg, device=None) -> int:
     """Batch prediction over prepared test archives
-    (reference: supres_train.py:149-179): each archive's patches are
-    predicted in batches of 8 and their interiors written into the output
-    mosaic in the archive's order (last write wins, as
-    ops/tiling.recompose_positions lays them out)."""
+    (reference: supres_train.py:149-179): each archive is read off memmaps in
+    batches of 8 and every predicted interior is written into the output
+    mosaic in the archive's order (last write wins, as ops/tiling.recompose
+    does), so host memory holds the mosaic and one batch, not the archive."""
     from dsen2_tpu_torch.core.bands import SCALE
     from dsen2_tpu_torch.core.device import resolve_device, upload
-    from dsen2_tpu_torch.data.patches_dataset import open_data_files_test
+    from dsen2_tpu_torch.data.patches_dataset import open_data_files_test_stream
     from dsen2_tpu_torch.models import s2net
     from dsen2_tpu_torch.ops.tiling import recompose_positions
     from dsen2_tpu_torch.weights import params_to_torch
@@ -266,9 +274,10 @@ def _predict(args, cfg, device=None) -> int:
     for dset in dsets:
         start = time.time()
         print(f"Predicting: {os.path.basename(dset)}.")
-        inputs, image_size = open_data_files_test(dset, args.run_60, SCALE)
+        batches, image_size, n, patch_px = open_data_files_test_stream(
+            dset, args.run_60, SCALE, batch_size=8
+        )
         h, w = int(image_size[0]), int(image_size[1])
-        n, patch_px = inputs[0].shape[0], inputs[0].shape[1]
         interior = patch_px - 2 * border
         if interior > h or interior > w:
             raise ValueError(f"patch interior {interior} exceeds the image ({h}, {w})")
@@ -281,13 +290,16 @@ def _predict(args, cfg, device=None) -> int:
             )
         images = np.zeros((h, w, cfg.out_channels), np.float32)
         # Patches beyond the grid are the reference's zero slack slots
-        # (utils/patches.py:35); nothing reads their predictions.
-        for i in range(0, len(pos), 8):
-            batch_in = [upload(a[i : i + 8], dev) for a in inputs]
+        # (utils/patches.py:35); they are read but not predicted.
+        for i, batch in enumerate(batches):
+            k = min(len(pos) - 8 * i, len(batch[0]))
+            if k <= 0:
+                continue
+            batch_in = [upload(a[:k], dev) for a in batch]
             with torch.no_grad():
                 pred = s2net.apply(params, batch_in, cfg, precision="high",
                                    use_kernels=None).cpu().numpy()
-            for j, (y, x) in enumerate(pos[i : i + 8]):
+            for j, (y, x) in enumerate(pos[8 * i : 8 * i + k]):
                 images[y : y + interior, x : x + interior] = pred[
                     j, border : patch_px - border, border : patch_px - border
                 ]

@@ -11,7 +11,7 @@ from dsen2_tpu_torch.ops.resize import (
     upsample_patches,
     wald_downsample,
 )
-from dsen2_tpu_torch.ops.tiling import PatchGrid, extract_patches
+from dsen2_tpu_torch.ops.tiling import PatchGrid, extract_patches, recompose
 
 __all__ = [
     "apply_separable",
@@ -21,4 +21,5 @@ __all__ = [
     "wald_downsample",
     "PatchGrid",
     "extract_patches",
+    "recompose",
 ]

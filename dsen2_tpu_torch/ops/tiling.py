@@ -1,7 +1,7 @@
 """Halo-patch decomposition and the border-crop mosaic.
 
-The counterpart of dsen2_tpu/ops/tiling.py:33-147. `PatchGrid` is host
-integer geometry, copied. The halo pad is numpy's mode="symmetric", which
+The counterpart of dsen2_tpu/ops/tiling.py. `PatchGrid` is host integer
+geometry, and `pad_patch_slack` host numpy, both copied. The halo pad is numpy's mode="symmetric", which
 repeats the edge pixel; torch's "reflect" pad does not, so the pad is built by
 index. The mosaic writes patch interiors one after another on the stream, in
 the reference's order, so overlapping edge-flush patches resolve
@@ -11,13 +11,15 @@ last-write-wins as they do there.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 __all__ = [
     "PatchGrid", "symmetric_index", "pad_symmetric", "extract_patches",
-    "gather_patches", "recompose_positions", "write_interiors",
+    "gather_patches", "recompose_positions", "write_interiors", "recompose",
+    "pad_patch_slack",
 ]
 
 
@@ -63,6 +65,15 @@ class PatchGrid:
     @property
     def num_patches(self) -> int:
         return len(self.starts_i) * len(self.starts_j)
+
+    @property
+    def slack_patches(self) -> int:
+        """The reference over-allocates (k+1)^2 patch slots and leaves unused
+        trailing slots zero (utils/patches.py:35,104); this is the number of
+        zero slots needed to reproduce its on-disk patch-archive format."""
+        k_i = self.height // self.stride
+        k_j = self.width // self.stride
+        return (k_i + 1) * (k_j + 1) - self.num_patches
 
     def scaled(self, factor: int) -> "PatchGrid":
         """The same grid expressed on a raster `factor`x finer."""
@@ -140,3 +151,53 @@ def write_interiors(mosaic: torch.Tensor, interiors: torch.Tensor, positions: np
     s = interiors.shape[1]
     for patch, (y, x) in zip(interiors, positions.tolist()):
         mosaic[y : y + s, x : x + s] = patch
+
+
+def recompose(
+    patches: torch.Tensor,
+    border: int,
+    out_hw: tuple[int, int],
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Crop `border` pixels from every patch edge and mosaic the interiors
+    into an [H, W, C] image, one after another in the reference's order, so
+    overlapping (edge-flush) patches resolve last-write-wins exactly like
+    utils/patches.py:374-405.
+
+    patches: [N, P, P, C] with N >= ceil(H/(P-2b)) * ceil(W/(P-2b)); extra
+    trailing patches (the reference's zero-filled slack slots) are ignored.
+    A single patch with border 0 covering the image short-circuits, like the
+    reference's one-patch path (utils/patches.py:375-376). `out`, when given,
+    is written in place and returned; else a zero mosaic on the patches'
+    device.
+    """
+    n, p, _, c = patches.shape
+    s = p - 2 * border
+    h, w = out_hw
+    if n == 1 and border == 0 and (h, w) == (p, p):
+        return patches[0]
+
+    if s > h or s > w:
+        raise ValueError(
+            f"recompose: patch interior {s} exceeds the image {out_hw}; "
+            "the patch/border geometry is too large for this image"
+        )
+    pos = recompose_positions(out_hw, s)
+    needed = pos.shape[0]
+    if n < needed:
+        raise ValueError(f"recompose: got {n} patches, grid needs {needed}")
+    if out is None:
+        out = torch.zeros((h, w, c), dtype=patches.dtype, device=patches.device)
+    write_interiors(out, patches[:needed, border : p - border, border : p - border, :], pos)
+    return out
+
+
+def pad_patch_slack(patches: np.ndarray, grid: PatchGrid) -> np.ndarray:
+    """Append the reference's zero slack slots to a host patch array so saved
+    archives are bit-compatible with reference-created ones
+    (utils/patches.py:35,104: (k+1)^2 allocated slots)."""
+    slack = grid.slack_patches
+    if slack == 0:
+        return patches
+    pad = np.zeros((slack,) + patches.shape[1:], dtype=patches.dtype)
+    return np.concatenate([patches, pad], axis=0)

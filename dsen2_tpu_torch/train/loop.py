@@ -11,10 +11,11 @@ forward and backward (ops/conv.py), as the JAX package trains through XLA
 convs: neither residual-block kernel has a backward. Host-fed batches are
 uploaded from pinned memory on a producer thread while the previous step
 runs; step losses stay on the device until the epoch ends. `stage_data=True`
-puts the dataset on the device once (train/staged.py).
+puts the dataset on the device once (train/staged.py). A streaming dataset
+(data/streaming.py::StreamingPatchDataset) in place of the arrays streams
+tile archives off disk with bounded host memory.
 
-One device: `mesh=` raises (multi-GPU is ROADMAP A12), and so does a
-streaming dataset (A11).
+One device: `mesh=` raises (multi-GPU is ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -38,6 +39,11 @@ from dsen2_tpu_torch.train.nadam import get_lr, load_optimizer_state, make_optim
 from dsen2_tpu_torch.weights import params_to_torch
 
 __all__ = ["TrainState", "fit", "make_optimizer", "restore_fit_state", "train_step"]
+
+# Streaming datasets: a val split up to this size is concatenated in RAM
+# once (load_val); beyond it, fit streams val batches tile-by-tile per
+# epoch (bounded RSS at the cost of re-reading the tiles each eval).
+VAL_STREAM_THRESHOLD_BYTES = 1 << 30
 
 
 @dataclasses.dataclass
@@ -157,17 +163,35 @@ def fit(
 
     Pass opt_state/start_epoch/plateau_state/history/best_val (e.g. via
     restore_fit_state) to resume the exact trajectory of an earlier run.
-    Runs on "cuda" unless `device` says otherwise."""
+    Runs on "cuda" unless `device` says otherwise.
+
+    `train_inputs` may instead be a data/streaming.py::StreamingPatchDataset
+    (pass train_labels=None); the epoch then streams tile archives off disk
+    with bounded RAM, and the val split defaults to ds.load_val() when
+    val_labels is None."""
     if mesh is not None:
         raise NotImplementedError(
             "fit(mesh=): data-parallel training over several GPUs is not ported "
             "yet (ROADMAP A12); the port trains on one device"
         )
-    if hasattr(train_inputs, "epoch_batches"):
-        raise NotImplementedError(
-            "streaming datasets (data/streaming.py) are not ported yet (ROADMAP "
-            "A11); pass in-RAM arrays"
-        )
+    stream_ds = train_inputs if hasattr(train_inputs, "epoch_batches") else None
+    stream_val = False
+    if stream_ds is not None:
+        if stage_data:
+            raise ValueError(
+                "stage_data=True is incompatible with a streaming dataset "
+                "(streaming exists precisely because the data exceeds memory)"
+            )
+        if val_labels is None:
+            # The val split streams tile-by-tile each epoch only when a
+            # one-time concatenated load would strain host RAM: streaming
+            # re-reads every tile each eval, so small splits load once.
+            # Batch boundaries and sample order are the same either way, so
+            # the val loss does not depend on this choice.
+            if stream_ds.val_nbytes() > VAL_STREAM_THRESHOLD_BYTES:
+                stream_val = True
+            else:
+                val_inputs, val_labels = stream_ds.load_val()
     dev = resolve_device(device)
     if params is None:
         params = s2net.init_params(torch.Generator().manual_seed(train_cfg.seed), cfg)
@@ -234,12 +258,15 @@ def fit(
         if best_val is not None:
             ckpt.best = best_val
 
-    n = train_labels.shape[0]
+    n = stream_ds.n_train if stream_ds is not None else train_labels.shape[0]
     rng = np.random.default_rng(train_cfg.seed)
     # Fast-forward the shuffle stream over the completed epochs, so a
     # resumed run sees the batch order the uninterrupted run would.
-    for _ in range(start_epoch):
-        rng.permutation(n)
+    # (Streaming epochs draw from a per-(seed, epoch) rng instead and consume
+    # nothing from this stream.)
+    if stream_ds is None:
+        for _ in range(start_epoch):
+            rng.permutation(n)
     epochs = train_cfg.epochs if epochs is None else epochs
 
     # The state after the last completed epoch, which the interrupt handler
@@ -274,12 +301,21 @@ def fit(
         save_train_state(path, live["params"], live["opt_state"],
                          epoch=len(history["loss"]), extra=extra)
 
+    val_producer_fn = None
+    if stream_val:
+        def val_producer_fn():
+            def produce():
+                for cnt, bin_, blb in stream_ds.val_batches(train_cfg.batch_size):
+                    yield cnt, place_batch(bin_), place_batch([blb])[0]
+
+            return produce()
+
     try:
         _epoch_loop(
             train_cfg, train_inputs, train_labels, val_inputs, val_labels,
             params, opt, live, step, evaluate, plateau, logger, ckpt,
             n, rng, history, start_epoch, epochs, verbose, place_batch,
-            save_state, staged,
+            save_state, staged, stream_ds, val_producer_fn,
         )
     except KeyboardInterrupt:
         # An interrupted run leaves a resumable full-state checkpoint.
@@ -351,18 +387,22 @@ def _epoch_loop(
     train_cfg, train_inputs, train_labels, val_inputs, val_labels,
     params, opt, live, step, evaluate, plateau, logger, ckpt,
     n, rng, history, start_epoch, epochs, verbose, place_batch,
-    save_state, staged=None,
+    save_state, staged=None, stream_ds=None, val_producer_fn=None,
 ):
     for epoch in range(start_epoch, epochs):
         t0 = time.time()
         if staged is not None:
             loss, mse_, val_loss = _staged_epoch(staged, train_cfg, params, opt, rng, n, epoch)
         else:
-            producer = _host_producer(
-                train_cfg, train_inputs, train_labels, rng, n, place_batch, epoch,
-            )
+            if stream_ds is not None:
+                producer = _stream_producer(stream_ds, train_cfg, epoch, place_batch)
+            else:
+                producer = _host_producer(
+                    train_cfg, train_inputs, train_labels, rng, n, place_batch, epoch,
+                )
             loss, mse_, val_loss = _run_host_epoch(
                 producer, train_cfg, val_inputs, val_labels, step, evaluate, place_batch,
+                val_producer_fn,
             )
 
         new_lr = plateau.step(val_loss)
@@ -462,11 +502,8 @@ def _host_producer(train_cfg, train_inputs, train_labels, rng, n, place_batch, e
 
 
 def _stream_producer(stream_ds, train_cfg, epoch, place_batch):
-    """Batch producer over a streaming dataset (an object with
-    epoch_batches(epoch, batch_size) yielding (count, inputs, label), as
-    dsen2_tpu/data/streaming.py has): tile-shuffled stream, augmented like
-    the in-RAM producer. fit() takes no streaming dataset until A11 ports
-    one."""
+    """Batch producer over a StreamingPatchDataset (data/streaming.py):
+    tile-shuffled stream, augmented like the in-RAM producer."""
     augment = _epoch_augmenter(train_cfg, epoch)
 
     def produce():
@@ -479,9 +516,12 @@ def _stream_producer(stream_ds, train_cfg, epoch, place_batch):
     return produce()
 
 
-def _run_host_epoch(producer, train_cfg, val_inputs, val_labels, step, evaluate, place_batch):
+def _run_host_epoch(producer, train_cfg, val_inputs, val_labels, step, evaluate, place_batch,
+                    val_producer_fn=None):
     """One epoch fed from the host, with background double-buffering. The
-    step and val losses stay on the device and come back in one copy."""
+    step and val losses stay on the device and come back in one copy.
+    val_producer_fn (streaming datasets) replaces the in-RAM val arrays
+    with a per-epoch bounded-memory batch producer."""
     losses, mses, weights = [], [], []
     for cnt, binputs, btarget in _prefetch(producer):
         loss, mse_ = step(binputs, btarget)
@@ -489,19 +529,24 @@ def _run_host_epoch(producer, train_cfg, val_inputs, val_labels, step, evaluate,
         mses.append(mse_)
         weights.append(cnt)
 
-    n_val = val_labels.shape[0]
+    if val_producer_fn is not None:
+        val_producer = val_producer_fn()
+    else:
+        n_val = val_labels.shape[0]
 
-    def produce_val():
-        for i in range(0, n_val, train_cfg.batch_size):
-            idx = np.arange(i, min(i + train_cfg.batch_size, n_val))
-            yield (
-                len(idx),
-                place_batch([a[idx] for a in val_inputs]),
-                place_batch([val_labels[idx]])[0],
-            )
+        def produce_val():
+            for i in range(0, n_val, train_cfg.batch_size):
+                idx = np.arange(i, min(i + train_cfg.batch_size, n_val))
+                yield (
+                    len(idx),
+                    place_batch([a[idx] for a in val_inputs]),
+                    place_batch([val_labels[idx]])[0],
+                )
+
+        val_producer = produce_val()
 
     vl, vw = [], []
-    for cnt, vi, vt in _prefetch(produce_val()):
+    for cnt, vi, vt in _prefetch(val_producer):
         vl.append(evaluate(vi, vt)[0])
         vw.append(cnt)
     k = len(losses)

@@ -100,7 +100,13 @@ def test_port_imports_neither_jax_nor_dsen2_tpu():
     names = {os.path.relpath(f, REPO) for f in files}
     assert {"dsen2_tpu_torch/infer/engine.py", "dsen2_tpu_torch/ops/dihedral.py",
             "dsen2_tpu_torch/infer/metrics.py", "dsen2_tpu_torch/data/mat.py",
-            "dsen2_tpu_torch/cli/demo.py"} <= names
+            "dsen2_tpu_torch/cli/demo.py", "dsen2_tpu_torch/geo/utm.py",
+            "dsen2_tpu_torch/io/geotiff.py", "dsen2_tpu_torch/io/writers.py",
+            "dsen2_tpu_torch/data/safe_pil.py", "dsen2_tpu_torch/data/safe_reader.py",
+            "dsen2_tpu_torch/data/streaming.py", "dsen2_tpu_torch/utils/native.py",
+            "dsen2_tpu_torch/utils/profiling.py", "dsen2_tpu_torch/cli/s2_supres.py",
+            "dsen2_tpu_torch/cli/create_patches.py",
+            "dsen2_tpu_torch/cli/convert_weights.py"} <= names
     for path in files:
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)

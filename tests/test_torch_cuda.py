@@ -295,3 +295,43 @@ def test_fit_on_card_staged_equals_host_fed(dev):
     assert np.isfinite(h_host["loss"]).all()
     np.testing.assert_allclose(h_st["loss"], h_host["loss"], rtol=1e-4)
     np.testing.assert_allclose(h_st["val_loss"], h_host["val_loss"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "uint16"])
+def test_s2_supres_on_card_equals_the_api(dev, out_dtype, tmp_path):
+    """The CLI on a 360^2 product held in memory (chip_smoke.py's GDAL seam)
+    writes, bit for bit, the SR bands the API computes from the same arrays,
+    with the product's EPSG code and tiepoint."""
+    import chip_smoke
+    from dsen2_tpu_torch.cli import s2_supres
+    from dsen2_tpu_torch.core.config import InferConfig
+    from dsen2_tpu_torch.infer import api
+    from tiff_reader import read_tiff
+
+    d10, d20, d60 = chip_smoke.product_rasters(7, 360)
+    gdal, name = chip_smoke.gdal_product(d10, d20, d60)
+    tif = str(tmp_path / "out.tif")
+    before = resblock_chain.fused_resblock_chain.launches
+    with chip_smoke.installed_gdal(gdal):
+        assert s2_supres.main([name, tif, "--run_60", "--output-dtype", out_dtype]) == 0
+    assert resblock_chain.fused_resblock_chain.launches > before
+    sr60 = api.dsen2_60(d10, d20, d60[:, :, :2], infer_cfg=InferConfig(
+        patch_size=192, border=12, output_dtype=out_dtype))
+    sr20 = api.dsen2_20(d10, d20, infer_cfg=InferConfig(
+        patch_size=128, border=8, output_dtype=out_dtype))
+    t = read_tiff(tif)
+    assert t["geokeys"][3072] == chip_smoke.PRODUCT_EPSG
+    assert t["tiepoint"][3:5] == [chip_smoke.PRODUCT_ULX, chip_smoke.PRODUCT_ULY]
+    want = np.concatenate([sr20, sr60], axis=2)
+    for i, n in enumerate(t["descriptions"]):
+        np.testing.assert_array_equal(t["bands"][n], want[:, :, i], err_msg=n)
+
+
+def test_recompose_on_card_equals_cpu(dev):
+    from dsen2_tpu_torch.ops import tiling
+
+    patches = torch.from_numpy(np.random.default_rng(9).random((31, 24, 24, 6), dtype=np.float32))
+    want = tiling.recompose(patches, 4, (90, 75))
+    got = tiling.recompose(patches.to(dev), 4, (90, 75))
+    assert got.is_cuda
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())

@@ -227,6 +227,8 @@ def test_force_lr_drives_the_updates():
 
 
 def test_mesh_and_streaming_raise():
+    """mesh= waits for multi-GPU training (A12); a streaming dataset cannot
+    be staged on the device."""
     data = _data()
     with pytest.raises(NotImplementedError, match="A12"):
         _fit(TrainConfig(batch_size=16), data, mesh=object(), epochs=1)
@@ -235,8 +237,8 @@ def test_mesh_and_streaming_raise():
         def epoch_batches(self, epoch, batch_size):
             return iter(())
 
-    with pytest.raises(NotImplementedError, match="A11"):
-        fit(CFG, TrainConfig(), Stream(), None, None, None, device="cpu")
+    with pytest.raises(ValueError, match="stage_data"):
+        fit(CFG, TrainConfig(), Stream(), None, None, None, stage_data=True, device="cpu")
 
 
 def test_fit_needs_a_gpu_unless_told(monkeypatch):

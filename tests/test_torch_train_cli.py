@@ -1,6 +1,6 @@
 """The port's training CLI (dsen2_tpu_torch.cli.train) on the CPU: --smoke
-at full DSen2 width, full-state and weights-only --resume, --predict against
-the JAX package's CLI, and what is not ported yet."""
+at full DSen2 width, full-state and weights-only --resume, and --predict and
+--stream against the JAX package's CLI."""
 
 import json
 import os
@@ -142,7 +142,38 @@ def test_predict_matches_the_jax_cli(tmp_path):
     assert np.abs(got - want).max() <= 2e-4 * np.abs(want).max()
 
 
-def test_stream_raises(tmp_path):
-    _make_train_data(tmp_path)
-    with pytest.raises(NotImplementedError, match="A11"):
-        _run("--path", f"{tmp_path}/", "--stream")
+def test_stream_raises(tmp_path, tiny, monkeypatch, capsys):
+    """--stream with --stage-data raises in both packages; --stream alone
+    follows the JAX CLI from the same weights (a weights-only resume, since
+    the packages' fresh inits differ): the same streaming line, and best
+    weights within fit's parity (rtol 1e-4)."""
+    from dsen2_tpu.core import config as jconfig
+    from dsen2_tpu.weights import load_keras_weights as j_load_keras
+    from dsen2_tpu_torch.weights import save_keras_weights
+
+    monkeypatch.setattr(jconfig, "dsen2_2x",
+                        lambda deep=False: jconfig.ModelConfig(in_channels=(4, 6), num_layers=2,
+                                                               feature_size=16))
+    roots = {name: tmp_path / name for name in ("jax", "port")}
+    for root in roots.values():
+        _make_train_data(root)
+    for main, kw in ((j_train_cli.main, {}), (train_cli.main, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="stage_data"):
+            main(["--path", f"{roots['port']}/", "--stream", "--stage-data", "--epochs", "1"],
+                 **kw)
+    capsys.readouterr()
+    wpath = str(tmp_path / "s2_777_lr_1e-04.hdf5")
+    save_keras_weights(wpath, s2net.init_params(torch.Generator().manual_seed(4), TINY))
+    outs = {}
+    for name, main, kw in (("jax", j_train_cli.main, {}), ("port", train_cli.main,
+                                                         {"device": "cpu"})):
+        assert main(["--path", f"{roots[name]}/", "--stream", "--epochs", "2", "--batch-size",
+                     "8", "--precision", "highest", "--resume", wpath], **kw) == 0
+        outs[name] = capsys.readouterr().out
+    line = "Streaming 24 train / 8 val patches from 1 tiles."
+    assert line in outs["jax"] and line in outs["port"]
+    want = j_load_keras(str(roots["jax"] / "network_data" / "s2_777_lr_1e-04.hdf5"), TINY)
+    got = _weights(roots["port"], "s2_777_lr_1e-04.npz")
+    for top, name in s2net.PARAM_NAMES:
+        np.testing.assert_allclose(got[top][name], np.asarray(want[top][name]), rtol=1e-4,
+                                   atol=1e-5, err_msg=f"{top}.{name}")
