@@ -49,8 +49,19 @@ Phases, each printing its lines and its seconds:
    width ("default"; finite loss, no kernel launch); convert_weights
    round-tripping the shipped DSen2 .npz. B1 must launch in every s2_supres
    run;
-7. one {"kernels": [...]} JSON line, launches counted over phases 3, 4 and 6;
-8. the card's name and power limit, then {"ok": true, "device": {...}}.
+7. the mesh (dsen2_tpu_torch/parallel/) on meshes that repeat the one card:
+   the shard workers' streams; dsen2_20 on phase 4's 10980^2 tile at
+   "default" over 4 shards against phase 4's banded mosaic (wall, peak
+   memory, bit-equality); dsen2_60 2400^2 "high" over 3 shards, the
+   patch-132 route (B2) over 2, sr_tiles_sharded on 4 tiles over 4, and the
+   mesh ensemble, each against the single-device result; one data-parallel
+   train step (batch 128 of 32^2, "high", 2 shards) against the unsharded
+   step, and a staged fit(mesh=) at "default" whose loss falls, neither
+   launching a kernel; s2_supres --mesh 2 without a device must raise the
+   too-few-devices error on a one-GPU machine. B1 and B2 must launch;
+8. one {"kernels": [...]} JSON line, launches counted over phases 3, 4, 6
+   and 7;
+9. the card's name and power limit, then {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line. Without a CUDA device,
 or without the dsen2_tpu_torch package beside it, the script fails.
@@ -556,6 +567,7 @@ def phase_full_tile(torch, api, engine, weights, chain_mod, block_mod, card):
           f"rounded float32| {diff:.0f} DN", flush=True)
     check(u16.dtype == np.uint16 and d2h == u16.nbytes, "uint16 output or its d2h bytes")
     check(diff <= 1, "uint16 output strays from the rounded float32 one")
+    banded_default = f32_default  # phase 7 holds the mesh run against it
     del u16, want, f32_default, d10, d20, d60
 
     cfg = InferConfig(patch_size=128, border=8, precision="default")
@@ -592,7 +604,7 @@ def phase_full_tile(torch, api, engine, weights, chain_mod, block_mod, card):
     print(f"full-tile path launches: {launches}", flush=True)
     for k, n in launches.items():
         check(n > 0, f"{k} was not launched on the full-tile path")
-    return launches
+    return launches, banded_default
 
 
 # Phase 5's data: the reference's 2x training crops, N train + val samples.
@@ -1197,6 +1209,175 @@ def phase_production(torch, api, engine, weights, chain_mod, block_mod, card, st
     return launches
 
 
+# Phase 7's scene side for the 2400^2 runs (phase 3's scene).
+MESH_SCENE = 2400
+
+
+def phase_mesh(torch, api, weights, chain_mod, block_mod, card, banded_default, gpu):
+    """The mesh on meshes that repeat the card `gpu`: sharded inference at
+    full width against the single-device results, data-parallel training
+    against the unsharded step, and --mesh 2's error on one GPU. Returns the
+    kernels' launches in the inference runs."""
+    from dsen2_tpu_torch.cli import s2_supres
+    from dsen2_tpu_torch.core.config import InferConfig, TrainConfig, dsen2_2x
+    from dsen2_tpu_torch.models import s2net
+    from dsen2_tpu_torch.parallel import inference as pinf
+    from dsen2_tpu_torch.parallel import make_mesh, make_train_step
+    from dsen2_tpu_torch.train import fit
+    from dsen2_tpu_torch.train.nadam import make_optimizer
+    from dsen2_tpu_torch.weights import params_to_torch
+
+    def mesh_of(n):
+        return make_mesh([gpu] * n)
+
+    def counts():
+        return (chain_mod.fused_resblock_chain.launches, block_mod.fused_resblock.launches)
+
+    models = os.path.join(HERE, "models")
+    params20 = weights.load_params_npz(os.path.join(models, "s2_032_lr_1e-04.npz"))
+    params60 = weights.load_params_npz(os.path.join(models, "s2_030_lr_1e-05.npz"))
+    chain_mod.fused_resblock_chain.launches = 0
+    block_mod.fused_resblock.launches = 0
+
+    # Each shard worker runs on a stream of its own, which the kernels'
+    # wrappers read as the thread's current stream.
+    seen = {}
+
+    def probe(s):
+        seen[s] = torch.cuda.current_stream(gpu).cuda_stream
+        return [torch.zeros(1, device=gpu)]
+
+    pinf.run_on_shards([gpu] * 4, probe)
+    default_stream = torch.cuda.current_stream(gpu).cuda_stream
+    print(f"shard workers' current streams: {len(set(seen.values()))} distinct of 4, the "
+          f"caller's default among them: {default_stream in seen.values()}", flush=True)
+    check(len(set(seen.values())) == 4 and default_stream not in seen.values(),
+          "shard workers do not run on streams of their own")
+
+    # 1. The 10980^2 tile over 4 shards against phase 4's banded mosaic.
+    d10, d20, _ = tiled_scene(1, FULL_TILE, TILE_BASE)
+    cfg = InferConfig(patch_size=128, border=8, precision="default")
+    mesh4 = mesh_of(4)
+    b1 = counts()[0]
+    _, cold, _ = timed(torch, lambda: api.dsen2_20(d10, d20, params=params20, infer_cfg=cfg,
+                                                   mesh=mesh4))
+    out, warm, peak = timed(torch, lambda: api.dsen2_20(d10, d20, params=params20,
+                                                        infer_cfg=cfg, mesh=mesh4))
+    b1 = counts()[0] - b1
+    diff = float(np.abs(out - banded_default).max())
+    limit = E2E_TOL["default"] * float(np.abs(banded_default).max())
+    print(f"dsen2_20 {FULL_TILE}^2 default over [cuda:0] x 4: cold {cold:.3f} s, warm "
+          f"{warm:.3f} s on {card}; peak device memory {peak / 2**30:.2f} GiB; max|diff vs "
+          f"phase 4's banded mosaic| {diff:.3e} DN (limit {limit:.3f}), bit-equal "
+          f"{bool(np.array_equal(out, banded_default))}; B1 blocks in two calls {b1}",
+          flush=True)
+    check(out.shape == banded_default.shape and np.isfinite(out).all(),
+          "sharded 10980^2 output")
+    check(diff <= limit and b1 > 0, "sharded 10980^2 mosaic strays from the banded one")
+    del out, d10, d20
+
+    def against_single(name, sharded, single, prec):
+        t0 = time.perf_counter()
+        got = sharded()
+        wall = time.perf_counter() - t0
+        want = single()
+        diff = float(np.abs(got - want).max())
+        limit = E2E_TOL[prec] * float(np.abs(want).max())
+        print(f"{name}: {wall:.3f} s; max|diff vs one device| {diff:.3e} DN (limit "
+              f"{limit:.3f}), bit-equal {bool(np.array_equal(got, want))}", flush=True)
+        check(got.shape == want.shape and np.isfinite(got).all() and diff <= limit,
+              f"{name} strays from the single-device result")
+
+    # 2-5. dsen2_60 over 3 shards (uneven band heights, a flush row), the
+    # patch-132 route over 2, the fleet of 4 tiles over 4, the ensemble.
+    d10, d20, d60 = synthetic_scene(0, MESH_SCENE)
+    cfg = InferConfig(patch_size=192, border=12, precision="high")
+    against_single(f"dsen2_60 {MESH_SCENE}^2 high over [cuda:0] x 3",
+                   lambda: api.dsen2_60(d10, d20, d60, params=params60, infer_cfg=cfg,
+                                        mesh=mesh_of(3)),
+                   lambda: api.dsen2_60(d10, d20, d60, params=params60, infer_cfg=cfg),
+                   "high")
+    cfg = InferConfig(patch_size=132, border=8, precision="default")
+    b2 = counts()[1]
+    against_single(f"dsen2_20 {MESH_SCENE}^2 patch 132 default over [cuda:0] x 2 (fused_resblock)",
+                   lambda: api.dsen2_20(d10, d20, params=params20, infer_cfg=cfg,
+                                        mesh=mesh_of(2)),
+                   lambda: api.dsen2_20(d10, d20, params=params20, infer_cfg=cfg),
+                   "default")
+    check(counts()[1] > b2, "the patch-132 mesh run did not reach B2")
+    cfg = InferConfig(patch_size=128, border=8, precision="default")
+    tiles = [synthetic_scene(10 + i, MESH_SCENE)[:2] for i in range(4)]
+    stacks = [np.stack([t[i] for t in tiles]) for i in range(2)]
+    against_single(f"sr_tiles_sharded 4 tiles of {MESH_SCENE}^2 default over [cuda:0] x 4",
+                   lambda: pinf.sr_tiles_sharded(params20, stacks, 2, dsen2_2x(), cfg,
+                                                 mesh4),
+                   lambda: np.stack([api.dsen2_20(*t, params=params20, infer_cfg=cfg)
+                                     for t in tiles]),
+                   "default")
+    del tiles, stacks
+    d10, d20 = synthetic_scene(2, MESH_SCENE)[:2]
+    against_single(f"ensemble {MESH_SCENE}^2 default over [cuda:0] x 4",
+                   lambda: api.dsen2_20(d10, d20, params=params20, infer_cfg=cfg,
+                                        ensemble=True, mesh=mesh4),
+                   lambda: api.dsen2_20(d10, d20, params=params20, infer_cfg=cfg,
+                                        ensemble=True),
+                   "default")
+    launches = {"fused_resblock_chain": counts()[0], "fused_resblock": counts()[1]}
+    print(f"mesh inference launches: {launches}", flush=True)
+    for k, n in launches.items():
+        check(n > 0, f"{k} was not launched on the mesh path")
+
+    # 6. One data-parallel step, 2 shards, against the unsharded step.
+    tcfg = dsen2_2x()
+    xs, label = training_set(0, TRAIN_BATCH, 32, tcfg.in_channels)
+    params0 = s2net.init_params(torch.Generator().manual_seed(0), tcfg)
+    inputs = tuple(torch.as_tensor(x, device=gpu) for x in xs)
+    target = torch.as_tensor(label, device=gpu)
+
+    def one_step(mesh):
+        params = {t: {k: v.clone().requires_grad_(True) for k, v in sub.items()}
+                  for t, sub in params_to_torch(params0, gpu).items()}
+        step = make_train_step(tcfg, make_optimizer(params, TrainConfig()), mesh=mesh,
+                               precision="high")
+        loss = float(step(params, inputs, target)["loss"])
+        return loss, [t.grad for t in s2net.param_leaves(params)]
+
+    before = counts()
+    loss1, g1 = one_step(None)
+    loss2, g2 = one_step(mesh_of(2))
+    worst = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(g2, g1))
+    print(f"data-parallel step DSen2 2x high, batch {TRAIN_BATCH} x 32^2 over [cuda:0] x 2: "
+          f"loss {loss2:.7f} vs unsharded {loss1:.7f}; worst max|diff|/max|g| over the "
+          f"{len(g1)} gradients {worst:.3e} (limit {E2E_TOL['high']})", flush=True)
+    check(abs(loss2 - loss1) <= E2E_TOL["high"] * abs(loss1) and worst <= E2E_TOL["high"],
+          "the data-parallel step strays from the unsharded one")
+
+    # 7. A staged fit over 2 shards at "default": the loss falls.
+    data = split(*training_set(1, 8 * TRAIN_BATCH + 64, 32, tcfg.in_channels),
+                 8 * TRAIN_BATCH)
+    t0 = time.perf_counter()
+    _, hist = fit(tcfg, TrainConfig(batch_size=TRAIN_BATCH), *data, params=params0, epochs=2,
+                  precision="default", stage_data=True, mesh=mesh_of(2), verbose=False)
+    print(f"fit staged default over [cuda:0] x 2: 2 epochs of {8 * TRAIN_BATCH} crops in "
+          f"{time.perf_counter() - t0:.3f} s (cold); loss {hist['loss']}, val "
+          f"{hist['val_loss']}", flush=True)
+    check(np.isfinite(hist["loss"] + hist["val_loss"]).all() and hist["loss"][1] < hist["loss"][0],
+          "the staged mesh fit's loss did not fall")
+    check(counts() == before, "mesh training launched a residual-block kernel")
+
+    # 8. --mesh 2 without a device needs two GPUs.
+    if torch.cuda.device_count() == 1:
+        try:
+            s2_supres.main([os.path.join(HERE, "build", "none", "MTD_MSIL1C.xml"), "out.tif",
+                            "--mesh", "2"])
+            msg = None
+        except ValueError as e:
+            msg = str(e)
+        print(f"s2_supres --mesh 2 on one GPU: ValueError {msg!r}", flush=True)
+        check(msg == "mesh 2x1 needs 2 devices, have 1", "--mesh 2 on one GPU did not raise")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1235,7 +1416,8 @@ def main() -> int:
     print(f"phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    full = phase_full_tile(torch, api, engine, weights, resblock_chain, resblock, card)
+    full, banded_default = phase_full_tile(torch, api, engine, weights, resblock_chain,
+                                           resblock, card)
     launches = {k: n + full[k] for k, n in launches.items()}
     print(f"phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1248,6 +1430,13 @@ def main() -> int:
                            staged_rate)
     launches = {k: n + cli[k] for k, n in launches.items()}
     print(f"phase 6: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    mesh = phase_mesh(torch, api, weights, resblock_chain, resblock, card, banded_default,
+                      torch.device("cuda", torch.cuda.current_device()))
+    launches = {k: n + mesh[k] for k, n in launches.items()}
+    del banded_default
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
 
     main_b1 = res[("chain", (64, 128, 128, 128), "float32", 3)]
     main_b2 = res[("block", (64, 132, 132, 128), "float32", 1)]

@@ -14,7 +14,9 @@ Usage:
       [--deep] [--output-dtype float32|uint16|bfloat16] [--ensemble]
 
 It runs on the GPU; main(argv, device="cpu") runs the plain versions on the
-CPU. --mesh N with N > 1 (several GPUs) is not ported yet (ROADMAP A12).
+CPU. --mesh N with N > 1 shards the tile's patch grid over N GPUs
+(make_mesh(data=N), which needs N visible GPUs), or with device="cpu" over
+N repeats of the CPU.
 """
 
 from __future__ import annotations
@@ -57,8 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "weights). Runs device-resident: one averaged readback, "
                         "and --output-dtype quantizes only the final mean")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="shard the tile over N GPUs (not ported yet, ROADMAP "
-                        "A12); 0 or 1 runs on one device")
+                   help="shard the tile's patch grid over N GPUs; 0 or 1 runs "
+                        "on one device")
     return p
 
 
@@ -66,11 +68,6 @@ def main(argv=None, device=None) -> int:
     import numpy as np
 
     args = build_parser().parse_args(argv)
-    if args.mesh > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: sharding a tile over several GPUs is not ported "
-            "yet (ROADMAP A12); --mesh 0 or 1 runs on one device"
-        )
 
     if args.list_output_file_formats:
         from dsen2_tpu_torch.io.writers import list_creatable_formats
@@ -102,6 +99,13 @@ def main(argv=None, device=None) -> int:
     # Listing bands needs no device; super-resolution runs on "cuda" unless
     # told otherwise, and fails before the product is read if there is none.
     dev = None if args.list_bands else resolve_device(device)
+    mesh = None
+    if dev is not None and args.mesh > 1:
+        from dsen2_tpu_torch.parallel import make_mesh
+
+        # Over the visible GPUs, or N repeats of the device the caller named.
+        mesh = make_mesh(None if device is None else [dev] * args.mesh, data=args.mesh)
+        dev = None
 
     tile = read_safe(
         args.data_file,
@@ -140,17 +144,20 @@ def main(argv=None, device=None) -> int:
     icfg2 = InferConfig(patch_size=128, border=8, output_dtype=args.output_dtype)
     icfg6 = InferConfig(patch_size=192, border=12, output_dtype=args.output_dtype)
 
+    if mesh is not None:
+        print(f"Sharding the patch grid over {args.mesh} devices")
+
     sr60 = None
     if args.run_60 and tile.data60 is not None and tile.data20 is not None:
         print("Super-resolving the 60m data into 10m bands")
         sr60 = dsen2_60(tile.data10, tile.data20, tile.data60, deep=args.deep,
-                        ensemble=args.ensemble, infer_cfg=icfg6, device=dev)
+                        ensemble=args.ensemble, infer_cfg=icfg6, device=dev, mesh=mesh)
 
     sr20 = None
     if tile.data20 is not None:
         print("Super-resolving the 20m data into 10m bands")
         sr20 = dsen2_20(tile.data10, tile.data20, deep=args.deep,
-                        ensemble=args.ensemble, infer_cfg=icfg2, device=dev)
+                        ensemble=args.ensemble, infer_cfg=icfg2, device=dev, mesh=mesh)
 
     if sr20 is None:
         print("No super-resolution performed, exiting")

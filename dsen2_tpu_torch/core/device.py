@@ -11,12 +11,15 @@ of two is exact in f32, so a TF32 conv of bf16-valued f32 planes computes the
 bf16 products with f32 sums. Plane convs run inside
 `tf32_for_bf16_operands()`; every other conv and matmul the port owns runs
 inside `tf32_disabled()`. Both restore the flags they found; nothing is
-flipped at import.
+flipped at import. The flags are process-wide and mesh shards dispatch
+convs from several host threads, so a scope holds a lock while it is open:
+no other thread's scope changes the flags under it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator, Optional, Union
 
 import numpy as np
@@ -38,16 +41,21 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return torch.device("cuda")
 
 
+# Held by the thread whose TF32 scope is open; re-entrant, as scopes nest.
+_tf32_lock = threading.RLock()
+
+
 @contextlib.contextmanager
 def _tf32(on: bool) -> Iterator[None]:
-    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = on
-    torch.backends.cuda.matmul.allow_tf32 = on
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = conv
-        torch.backends.cuda.matmul.allow_tf32 = mm
+    with _tf32_lock:
+        conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = on
+        torch.backends.cuda.matmul.allow_tf32 = on
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = conv
+            torch.backends.cuda.matmul.allow_tf32 = mm
 
 
 def tf32_disabled():

@@ -74,6 +74,8 @@
 // 5. Host: packing happens once per wrapper call for all K blocks, and the
 //    shared-memory attribute is set once per instantiation and device.
 
+#include <atomic>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -539,13 +541,16 @@ int launch_conv(const ConvArgs& a, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  static unsigned long long ready = 0;  // devices whose attribute is set
+  // Devices whose attribute is set. Mesh shards launch from several host
+  // threads at once; setting the attribute twice is harmless, a torn
+  // read-modify-write of the mask is not.
+  static std::atomic<unsigned long long> ready{0};
   if (dev >= 64) return -1;
-  if (!(ready & (1ull << dev))) {
+  if (!(ready.load(std::memory_order_acquire) & (1ull << dev))) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                Cfg<PASSES>::SMEM);
     if (err != cudaSuccess) return (int)err;
-    ready |= 1ull << dev;
+    ready.fetch_or(1ull << dev, std::memory_order_release);
   }
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

@@ -32,6 +32,7 @@ from dsen2_tpu_torch.ops.resize import upsample_patches
 from dsen2_tpu_torch.ops.tiling import (
     PatchGrid, gather_patches, pad_symmetric, recompose_positions, write_interiors,
 )
+from dsen2_tpu_torch.parallel.mesh import primary_device
 from dsen2_tpu_torch.weights import default_params, params_to_torch
 
 __all__ = [
@@ -239,13 +240,28 @@ def _run(
     infer_cfg: InferConfig,
     device: Device = None,
     device_output: bool = False,
+    mesh=None,
 ):
     """The 2x and 6x paths share this runner. rasters: finest-first HWC numpy
     (or tensors); params: a numpy (or tensor) params dict. Returns a host
     array, or with device_output=True the mosaic tensor on the device (in
     _mosaic_dtype). Host outputs of _BANDED_THRESHOLD_PX pixels or more go
-    through the banded engine."""
-    dev = resolve_device(device)
+    through the banded engine. With a mesh of several devices, the tile's
+    grid rows shard over its 'data' axis (parallel.inference.
+    sr_tile_sharded), one output band per shard; a one-device mesh runs
+    this single-device path on its device."""
+    if mesh is not None and mesh.devices.size > 1:
+        if device_output:
+            raise ValueError(
+                "device_output=True is not supported with a multi-device mesh: "
+                "sr_tile_sharded assembles the mosaic on the host from per-shard "
+                "bands. Drop device_output or run without a mesh."
+            )
+        from dsen2_tpu_torch.parallel.inference import sr_tile_sharded
+
+        primary_device(mesh, device)
+        return sr_tile_sharded(params, rasters, lr_factor, cfg, infer_cfg, mesh)
+    dev = resolve_device(device if mesh is None else primary_device(mesh, device))
     out_dtype = _output_dtype(infer_cfg.output_dtype)
     _validate_inputs(rasters, lr_factor, cfg, infer_cfg)
     h10, w10 = rasters[0].shape[:2]
@@ -311,6 +327,7 @@ def _run_ensembled(
     params,
     infer_cfg: InferConfig,
     device: Device = None,
+    mesh=None,
 ) -> np.ndarray:
     """Geometric self-ensemble: run the pipeline on all 8 dihedral
     transforms of the input rasters, invert each prediction, average.
@@ -320,14 +337,33 @@ def _run_ensembled(
     _BANDED_THRESHOLD_PX run each transform whole; larger ones run the
     banded engine and fold each band into the sum as it comes, so the
     device holds the sum and about two bands, never a transformed mosaic.
-    An integer output_dtype is applied once, to the mean."""
-    from dsen2_tpu_torch.infer.engine import sr_banded
-    from dsen2_tpu_torch.ops.dihedral import dihedral_static, inverse_code
+    An integer output_dtype is applied once, to the mean.
 
-    dev = resolve_device(device)
+    With a mesh of several devices, each transform is transformed on the
+    host (the band decomposition depends on the orientation) and runs
+    sr_tile_sharded with device_result=True; every shard's band folds into
+    the f32 sum on the mesh's first device, and the host reads back one
+    mosaic. A one-device mesh runs the single-device path on its device."""
+    from dsen2_tpu_torch.infer.engine import sr_banded
+    from dsen2_tpu_torch.ops.dihedral import dihedral_np, dihedral_static, inverse_code
+
+    sharded = mesh is not None and mesh.devices.size > 1
+    dev = resolve_device(device if mesh is None else primary_device(mesh, device))
     out_dtype = _output_dtype(infer_cfg.output_dtype)
     _validate_inputs(rasters, lr_factor, cfg, infer_cfg)
     f32_cfg = dataclasses.replace(infer_cfg, output_dtype="float32")
+    if sharded:
+        from dsen2_tpu_torch.parallel import inference as pinf
+
+        h10, w10 = rasters[0].shape[:2]
+        acc = torch.zeros((h10, w10, cfg.out_channels), dtype=torch.float32, device=dev)
+        for code in range(8):
+            tr = [dihedral_np(np.asarray(r), code) for r in rasters]
+            bands, band_meta = pinf.sr_tile_sharded(params, tr, lr_factor, cfg, f32_cfg, mesh,
+                                                    device_result=True)
+            acc = _ens_accumulate_bands(
+                acc, ((b.to(dev), y0, h) for b, (y0, h) in zip(bands, band_meta) if h), code)
+        return _ens_finish(acc, out_dtype)
     tparams = params_to_torch(params, dev)
     # f32 on the device, exact for the compact dtypes, before any transform.
     staged = [_cast(stage_raster(r, dev), torch.float32) for r in rasters]
@@ -344,6 +380,12 @@ def _run_ensembled(
         else:
             sr = _run(tr, lr_factor, cfg, tparams, f32_cfg, device=dev, device_output=True)
             acc += dihedral_static(sr, inverse_code[code])
+    return _ens_finish(acc, out_dtype)
+
+
+def _ens_finish(acc: torch.Tensor, out_dtype: np.dtype) -> np.ndarray:
+    """The mean of the 8 transforms' f32 sum, quantised once for an integer
+    output_dtype, read back once."""
     mean = acc / 8.0
     if np.issubdtype(out_dtype, np.integer):
         mean = _quantize(mean, out_dtype)
@@ -376,14 +418,6 @@ def _output_dtype(name: str) -> np.dtype:
     return dt
 
 
-def _unsupported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-GPU tile sharding, with or without ensemble=True) is not "
-            "ported yet: ROADMAP A12"
-        )
-
-
 def dsen2_20(
     d10: np.ndarray,
     d20: np.ndarray,
@@ -399,14 +433,14 @@ def dsen2_20(
     d10: [H, W, 4] (B2, B3, B4, B8); d20: [H/2, W/2, 6]
     (B5, B6, B7, B8A, B11, B12). ensemble=True averages over the 8 dihedral
     transforms (8x the compute). Runs on "cuda" unless `device` says
-    otherwise."""
-    _unsupported(mesh)
+    otherwise. With a mesh (parallel.make_mesh), ONE tile's patch grid
+    shards over the mesh's 'data' axis."""
     cfg = dsen2_2x(deep)
     infer_cfg = infer_cfg or InferConfig(patch_size=128, border=8)
     if params is None:
         params = default_params(cfg, run_60=False, deep=deep)
     run = _run_ensembled if ensemble else _run
-    return run([d10, d20], 2, cfg, params, infer_cfg, device)
+    return run([d10, d20], 2, cfg, params, infer_cfg, device, mesh=mesh)
 
 
 def dsen2_60(
@@ -422,11 +456,10 @@ def dsen2_60(
 ) -> np.ndarray:
     """Super-resolve the two 60 m bands (B1, B9) to 10 m (patch 192, border
     12). ensemble=True averages over the 8 dihedral transforms. Runs on
-    "cuda" unless `device` says otherwise."""
-    _unsupported(mesh)
+    "cuda" unless `device` says otherwise; with a mesh, over its devices."""
     cfg = dsen2_6x(deep)
     infer_cfg = infer_cfg or InferConfig(patch_size=192, border=12)
     if params is None:
         params = default_params(cfg, run_60=True, deep=deep)
     run = _run_ensembled if ensemble else _run
-    return run([d10, d20, d60], 6, cfg, params, infer_cfg, device)
+    return run([d10, d20, d60], 6, cfg, params, infer_cfg, device, mesh=mesh)

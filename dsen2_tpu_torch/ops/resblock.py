@@ -11,7 +11,9 @@ kernels tile both axes themselves; tile_rows is kept for that contract only.
 
 from __future__ import annotations
 
-from dsen2_tpu_torch.ops.resblock_chain import check_args, launch_blocks, resblock_plain
+from dsen2_tpu_torch.ops.resblock_chain import (
+    check_args, count_launches, launch_blocks, resblock_plain,
+)
 
 __all__ = ["fused_resblock", "fused_resblock_plain"]
 
@@ -38,7 +40,7 @@ def fused_resblock(x, w1, b1, w2, b2, *, scale: float = 0.1, tile_rows: int = 16
     if x.device.type == "cpu":
         return fused_resblock_plain(x, w1, b1, w2, b2, scale=scale)
     out = launch_blocks(x, w1[None], b1[None], w2[None], b2[None], scale, 1)
-    fused_resblock.launches += 1
+    count_launches(fused_resblock, 1)
     return out
 
 

@@ -19,6 +19,8 @@ raises. A failed build or launch raises.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 import torch.nn.functional as F
 
@@ -26,7 +28,7 @@ from dsen2_tpu_torch.core.device import tf32_disabled
 
 __all__ = [
     "fused_resblock_chain", "resblock_chain_plain", "resblock_plain",
-    "pack_weights", "split_planes", "KERNEL_CHANNELS",
+    "pack_weights", "split_planes", "KERNEL_CHANNELS", "count_launches",
 ]
 
 # Feature counts the CUDA kernel is instantiated for (csrc/resblock_chain.cu,
@@ -119,6 +121,16 @@ def check_args(x, w1, b1, w2, b2, passes: int) -> None:
         raise ValueError("passes=3 (the bf16x3 'high' class) requires f32 inputs")
 
 
+_launch_lock = threading.Lock()
+
+
+def count_launches(wrapper, n: int) -> None:
+    """Add n to wrapper.launches. Mesh shards launch from several host
+    threads at once, and += on an attribute is not atomic."""
+    with _launch_lock:
+        wrapper.launches += n
+
+
 def _check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed (error {err})")
@@ -191,7 +203,7 @@ def fused_resblock_chain(x, w1, b1, w2, b2, *, scale: float = 0.1, passes: int =
     if x.device.type == "cpu":
         return resblock_chain_plain(x, w1, b1, w2, b2, scale=scale, passes=passes)
     x = launch_blocks(x, w1, b1, w2, b2, scale, passes)
-    fused_resblock_chain.launches += w1.shape[0]
+    count_launches(fused_resblock_chain, w1.shape[0])
     return x
 
 

@@ -15,7 +15,9 @@ puts the dataset on the device once (train/staged.py). A streaming dataset
 (data/streaming.py::StreamingPatchDataset) in place of the arrays streams
 tile archives off disk with bounded host memory.
 
-One device: `mesh=` raises (multi-GPU is ROADMAP A12).
+Under a mesh (parallel/mesh.py) the steps are data-parallel
+(parallel/train_step.py): each batch splits over the mesh's 'data' axis,
+and the params live on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ from dsen2_tpu_torch.core.config import ModelConfig, TrainConfig
 from dsen2_tpu_torch.core.device import resolve_device, upload
 from dsen2_tpu_torch.models import s2net
 from dsen2_tpu_torch.train.callbacks import BestCheckpoint, LossLogger, ReduceLROnPlateau
-from dsen2_tpu_torch.train.losses import mae, mse
 from dsen2_tpu_torch.train.nadam import get_lr, load_optimizer_state, make_optimizer, set_lr
 from dsen2_tpu_torch.weights import params_to_torch
 
@@ -107,19 +108,10 @@ def train_step(params, opt, inputs, target, cfg: ModelConfig, precision: str = "
                remat: bool = False):
     """One optimizer step on a batch already on the device. Returns the
     batch's (MAE, MSE) before the update, as device scalars."""
-    pred = s2net.apply(params, inputs, cfg, precision=precision, remat=remat,
-                       use_kernels=False)
-    loss = mae(pred, target)
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    opt.step()
-    return loss.detach(), mse(pred.detach(), target)
+    from dsen2_tpu_torch.parallel import make_train_step
 
-
-@torch.no_grad()
-def eval_step(params, inputs, target, cfg: ModelConfig, precision: str = "high"):
-    pred = s2net.apply(params, inputs, cfg, precision=precision, use_kernels=False)
-    return mae(pred, target), mse(pred, target)
+    m = make_train_step(cfg, opt, None, precision, remat)(params, inputs, target)
+    return m["loss"], m["mse"]
 
 
 def _snapshot(params, opt) -> Dict:
@@ -163,17 +155,20 @@ def fit(
 
     Pass opt_state/start_epoch/plateau_state/history/best_val (e.g. via
     restore_fit_state) to resume the exact trajectory of an earlier run.
-    Runs on "cuda" unless `device` says otherwise.
+    Runs on "cuda" unless `device` says otherwise. With a mesh
+    (parallel.make_mesh), or with no mesh and no device on a machine with
+    several GPUs (then make_mesh()), each batch splits over the mesh's data
+    axis when it divides by it and runs on the first device otherwise, as
+    the JAX package replicates the final short batch.
 
     `train_inputs` may instead be a data/streaming.py::StreamingPatchDataset
     (pass train_labels=None); the epoch then streams tile archives off disk
     with bounded RAM, and the val split defaults to ds.load_val() when
     val_labels is None."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit(mesh=): data-parallel training over several GPUs is not ported "
-            "yet (ROADMAP A12); the port trains on one device"
-        )
+    # parallel/ imports train/losses.py, so it is imported here.
+    from dsen2_tpu_torch.parallel import batch_sharding, make_eval_step, make_mesh, make_train_step
+    from dsen2_tpu_torch.parallel.mesh import DATA_AXIS, primary_device
+
     stream_ds = train_inputs if hasattr(train_inputs, "epoch_batches") else None
     stream_val = False
     if stream_ds is not None:
@@ -192,7 +187,9 @@ def fit(
                 stream_val = True
             else:
                 val_inputs, val_labels = stream_ds.load_val()
-    dev = resolve_device(device)
+    if mesh is None and device is None and torch.cuda.device_count() > 1:
+        mesh = make_mesh()
+    dev = resolve_device(device) if mesh is None else primary_device(mesh, device)
     if params is None:
         params = s2net.init_params(torch.Generator().manual_seed(train_cfg.seed), cfg)
     params = {top: {k: v.detach().clone().requires_grad_(True) for k, v in sub.items()}
@@ -209,16 +206,27 @@ def fit(
         staged = stage_dataset(
             cfg, train_cfg.batch_size, train_inputs, train_labels, val_inputs, val_labels,
             device=dev, precision=precision, remat=remat, augment=train_cfg.augment,
+            mesh=mesh,
         )
 
     def place_batch(arrs):
-        return tuple(upload(np.asarray(a, np.float32), dev) for a in arrs)
+        """Each array on the device, or under a mesh split over its data
+        devices when the batch divides by the data axis."""
+        arrs = [np.asarray(a, np.float32) for a in arrs]
+        if mesh is None or arrs[0].shape[0] % mesh.shape[DATA_AXIS]:
+            return tuple(upload(a, dev) for a in arrs)
+        return tuple(batch_sharding(mesh, a.ndim).place(a) for a in arrs)
+
+    train_one = make_train_step(cfg, opt, mesh, precision, remat)
+    eval_one = make_eval_step(cfg, mesh, precision)
 
     def step(binputs, btarget):
-        return train_step(params, opt, binputs, btarget, cfg, precision, remat)
+        m = train_one(params, binputs, btarget)
+        return m["loss"], m["mse"]
 
     def evaluate(binputs, btarget):
-        return eval_step(params, binputs, btarget, cfg, precision)
+        m = eval_one(params, binputs, btarget)
+        return m["loss"], m["mse"]
 
     plateau = ReduceLROnPlateau(
         lr=train_cfg.lr,
@@ -444,7 +452,7 @@ def _staged_epoch(staged, train_cfg, params, opt, rng, n, epoch):
 
     idx, mask = pad_perm(rng.permutation(n), train_cfg.batch_size)
     aug = epoch_aug_codes(train_cfg.seed, epoch, *idx.shape)
-    dev = staged.train_labels.device
+    dev = staged.val_idx.device
     loss, mse_ = staged.train_epoch(
         params, opt, staged.train_inputs, staged.train_labels,
         upload(idx, dev), upload(mask, dev), upload(aug, dev),

@@ -335,3 +335,22 @@ def test_recompose_on_card_equals_cpu(dev):
     got = tiling.recompose(patches.to(dev), 4, (90, 75))
     assert got.is_cuda
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_tile_sharded_over_a_repeated_gpu_equals_one_device(dev):
+    """sr_tile_sharded on [cuda:0] * 2: two host workers launch B1 at once on
+    streams of their own; the mosaic is the single-device one bit for bit
+    (the chunk batch coincides), and both shards launched the kernel."""
+    from dsen2_tpu_torch.infer import api
+    from dsen2_tpu_torch.parallel import make_mesh
+    from dsen2_tpu_torch.parallel.inference import sr_tile_sharded
+
+    cfg, params, rasters, icfg = _engine_case(3)
+    mesh = make_mesh([torch.device("cuda", torch.cuda.current_device())] * 2)
+    want = api._run(rasters, 2, cfg, params, icfg)
+    before = resblock_chain.fused_resblock_chain.launches
+    got = sr_tile_sharded(params, rasters, 2, cfg, icfg, mesh)
+    blocks = resblock_chain.fused_resblock_chain.launches - before
+    np.testing.assert_array_equal(got, want)
+    assert blocks >= 2 * cfg.num_layers
+    assert np.array_equal(api._run(rasters, 2, cfg, params, icfg, mesh=mesh), want)

@@ -17,6 +17,7 @@ from dsen2_tpu_torch.core.config import InferConfig, ModelConfig
 from dsen2_tpu_torch.infer import api
 from dsen2_tpu_torch.models import s2net
 from dsen2_tpu_torch.ops import dihedral
+from dsen2_tpu_torch.parallel import make_mesh
 
 CFG = ModelConfig(in_channels=(4, 6), num_layers=2, feature_size=16)
 JCFG = JModelConfig(**dataclasses.asdict(CFG))
@@ -108,13 +109,17 @@ def test_entry_points_take_ensemble(monkeypatch):
     params = _params(3)
     calls = []
     orig = api._run_ensembled
-    monkeypatch.setattr(api, "_run_ensembled", lambda *a: calls.append(1) or orig(*a))
+    monkeypatch.setattr(api, "_run_ensembled",
+                        lambda *a, **kw: calls.append(kw.get("mesh")) or orig(*a, **kw))
     monkeypatch.setattr(api, "dsen2_2x", lambda deep=False: CFG)
     got = dsen2_20(d10, d20, params=params, infer_cfg=InferConfig(**KW), ensemble=True,
                    device="cpu")
-    assert calls == [1] and got.shape == (64, 64, 6)
-    with pytest.raises(NotImplementedError, match="A12"):
-        dsen2_20(d10, d20, params=params, ensemble=True, mesh=object(), device="cpu")
+    assert calls == [None] and got.shape == (64, 64, 6)
+    mesh = make_mesh([torch.device("cpu")] * 2)
+    on_mesh = dsen2_20(d10, d20, params=params, infer_cfg=InferConfig(**KW), ensemble=True,
+                       mesh=mesh)
+    assert calls == [None, mesh]
+    np.testing.assert_allclose(on_mesh, got, rtol=1e-5, atol=0.05)
 
 
 def test_ensemble_needs_a_gpu_unless_told(monkeypatch):

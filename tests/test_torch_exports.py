@@ -18,6 +18,7 @@ NOT_PORTED = {
     "geo": {},
     "infer": {},
     "ops": {},
+    "parallel": {},
     "train": {},
     "weights": {},
 }
@@ -29,7 +30,7 @@ JAX_ONLY = {
         "NadamKerasState": "optax state; the port keeps the optimizer's state_dict",
     },
 }
-PACKAGES_NOT_PORTED = {"parallel": "ROADMAP A12"}
+PACKAGES_NOT_PORTED: dict = {}
 # dsen2_tpu sub-packages that have another form in the port, or none.
 JAX_ONLY_PACKAGES = {
     "refimpl": "numpy oracles for tests; tests import them",

@@ -149,9 +149,16 @@ def test_validate_inputs_rejects_like_jax(case):
 
 
 def test_unported_options_raise():
+    """An output_dtype outside the port's set raises, and so does a device=
+    that is not the mesh's first device."""
+    from dsen2_tpu_torch.parallel import make_mesh
+
     d10, d20 = np.zeros((48, 48, 4), np.float32), np.zeros((24, 24, 6), np.float32)
-    with pytest.raises(NotImplementedError, match="A12"):
-        dsen2_20(d10, d20, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="output_dtype"):
+        dsen2_20(d10, d20, infer_cfg=InferConfig(patch_size=32, border=4,
+                                                 output_dtype="complex64"), device="cpu")
+    with pytest.raises(ValueError, match="mesh's first device"):
+        dsen2_20(d10, d20, mesh=make_mesh([torch.device("cpu")] * 2), device="meta")
 
 
 def _bf16_run(d10, d20, params, out_dtype="bfloat16"):

@@ -167,12 +167,16 @@ def _cli(mod, argv, where, monkeypatch, capsys, **kw):
     return capsys.readouterr().out
 
 
-def test_s2_supres_matches_the_jax_cli_at_full_width(product, tmp_path, monkeypatch, capsys):
+@pytest.mark.parametrize("mesh", [(), ("--mesh", "2")])
+def test_s2_supres_matches_the_jax_cli_at_full_width(product, tmp_path, monkeypatch, capsys,
+                                                     mesh):
     """The same JP2 product at a 240^2 ROI with --run_60, DSen2 at full
     width with the shipped weights: the same printed lines, the same
-    georeferencing, SR bands within the mosaic parity (rtol 2e-4, 0.5 DN)."""
+    georeferencing, SR bands within the mosaic parity (rtol 2e-4, 0.5 DN).
+    With --mesh 2 the port shards over two repeats of the CPU, the JAX CLI
+    over two of its virtual CPU devices."""
     mtd, _ = product
-    argv = [mtd, "out.tif", "--roi_x_y", "0,0,239,239", "--run_60"]
+    argv = [mtd, "out.tif", "--roi_x_y", "0,0,239,239", "--run_60", *mesh]
     want_out = _cli(j_cli, argv, tmp_path / "jax", monkeypatch, capsys)
     got_out = _cli(t_cli, argv, tmp_path / "port", monkeypatch, capsys, device="cpu")
     assert got_out == want_out
@@ -198,9 +202,22 @@ def test_listings_equal(two_zone, tmp_path, monkeypatch, capsys, flags):
     assert _cli(t_cli, argv, tmp_path, monkeypatch, capsys) == want
 
 
-def test_mesh_raises_naming_a12(product):
-    with pytest.raises(NotImplementedError, match="A12"):
-        t_cli.main([product[0], "out.tif", "--mesh", "2"], device="cpu")
+def test_mesh_raises_naming_a12(product, tmp_path, monkeypatch):
+    """--mesh 2 on a machine with one GPU and no device= raises the JAX
+    package's too-few-devices error, before the product is read."""
+    import jax
+
+    from dsen2_tpu.parallel import make_mesh as j_make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(treader, "read_safe", None)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(ValueError) as mine:
+        t_cli.main([product[0], "out.tif", "--mesh", "2"])
+    with pytest.raises(ValueError) as theirs:
+        j_make_mesh(jax.devices()[:1], data=2)
+    assert str(mine.value) == str(theirs.value) == "mesh 2x1 needs 2 devices, have 1"
 
 
 def test_s2_supres_needs_a_gpu_unless_told(product, tmp_path, monkeypatch):

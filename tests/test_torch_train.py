@@ -227,11 +227,14 @@ def test_force_lr_drives_the_updates():
 
 
 def test_mesh_and_streaming_raise():
-    """mesh= waits for multi-GPU training (A12); a streaming dataset cannot
-    be staged on the device."""
+    """A device= that is not the mesh's first device is refused (the params
+    live there); a streaming dataset cannot be staged on the device."""
+    from dsen2_tpu_torch.parallel import make_mesh
+
     data = _data()
-    with pytest.raises(NotImplementedError, match="A12"):
-        _fit(TrainConfig(batch_size=16), data, mesh=object(), epochs=1)
+    with pytest.raises(ValueError, match="mesh's first device"):
+        fit(CFG, TrainConfig(batch_size=16), *data, mesh=make_mesh([torch.device("cpu")] * 2),
+            device="meta", epochs=1, verbose=False)
 
     class Stream:
         def epoch_batches(self, epoch, batch_size):
