@@ -65,8 +65,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None, device=None) -> int:
-    import numpy as np
-
     args = build_parser().parse_args(argv)
 
     if args.list_output_file_formats:
@@ -76,8 +74,7 @@ def main(argv=None, device=None) -> int:
             print(name)
         return 0
 
-    from dsen2_tpu_torch.data.safe_reader import read_safe, scan_utm_zones
-    from dsen2_tpu_torch.io.writers import shifted_geotransform, write_bands
+    from dsen2_tpu_torch.data.safe_reader import scan_utm_zones
 
     roi_x_y = tuple(float(x) for x in re.split(",", args.roi_x_y)) if args.roi_x_y else None
     roi_lon_lat = (
@@ -107,14 +104,31 @@ def main(argv=None, device=None) -> int:
         mesh = make_mesh(None if device is None else [dev] * args.mesh, data=args.mesh)
         dev = None
 
-    tile = read_safe(
-        args.data_file,
-        roi_x_y=roi_x_y,
-        roi_lon_lat=roi_lon_lat,
-        run_60=args.run_60,
-        select_utm_zone=args.select_UTM,
-        output_format=args.output_file_format,
-    )
+    from dsen2_tpu_torch.utils import profiling
+
+    with profiling.span("s2_supres.main"):
+        return _supres(args, roi_x_y, roi_lon_lat, dev, mesh)
+
+
+def _supres(args, roi_x_y, roi_lon_lat, dev, mesh) -> int:
+    """main's work from the product's read to the written output, in the
+    spans s2_supres.read, s2_supres.sr (net=6x, then 2x), s2_supres.assemble
+    and s2_supres.write."""
+    import numpy as np
+
+    from dsen2_tpu_torch.data.safe_reader import read_safe
+    from dsen2_tpu_torch.io.writers import shifted_geotransform, write_bands
+    from dsen2_tpu_torch.utils import profiling
+
+    with profiling.span("s2_supres.read"):
+        tile = read_safe(
+            args.data_file,
+            roi_x_y=roi_x_y,
+            roi_lon_lat=roi_lon_lat,
+            run_60=args.run_60,
+            select_utm_zone=args.select_UTM,
+            output_format=args.output_file_format,
+        )
 
     print(f"Selected UTM Zone: {tile.utm}")
     print(
@@ -150,46 +164,50 @@ def main(argv=None, device=None) -> int:
     sr60 = None
     if args.run_60 and tile.data60 is not None and tile.data20 is not None:
         print("Super-resolving the 60m data into 10m bands")
-        sr60 = dsen2_60(tile.data10, tile.data20, tile.data60, deep=args.deep,
-                        ensemble=args.ensemble, infer_cfg=icfg6, device=dev, mesh=mesh)
+        with profiling.span("s2_supres.sr", net="6x"):
+            sr60 = dsen2_60(tile.data10, tile.data20, tile.data60, deep=args.deep,
+                            ensemble=args.ensemble, infer_cfg=icfg6, device=dev, mesh=mesh)
 
     sr20 = None
     if tile.data20 is not None:
         print("Super-resolving the 20m data into 10m bands")
-        sr20 = dsen2_20(tile.data10, tile.data20, deep=args.deep,
-                        ensemble=args.ensemble, infer_cfg=icfg2, device=dev, mesh=mesh)
+        with profiling.span("s2_supres.sr", net="2x"):
+            sr20 = dsen2_20(tile.data10, tile.data20, deep=args.deep,
+                            ensemble=args.ensemble, infer_cfg=icfg2, device=dev, mesh=mesh)
 
     if sr20 is None:
         print("No super-resolution performed, exiting")
         return 0
 
-    if args.output_dtype == "bfloat16":
-        # bf16 is a readback-wire format; writers (GDAL/npz) get float32.
-        sr20 = sr20.astype(np.float32)
-        sr60 = sr60.astype(np.float32) if sr60 is not None else None
+    with profiling.span("s2_supres.assemble"):
+        if args.output_dtype == "bfloat16":
+            # bf16 is a readback-wire format; writers (GDAL/npz) get float32.
+            sr20 = sr20.astype(np.float32)
+            sr60 = sr60.astype(np.float32) if sr60 is not None else None
 
-    if sr60 is not None:
-        sr = np.concatenate((sr20, sr60), axis=2)
-        sr_bands = tile.bands20 + tile.bands60
-    else:
-        sr = sr20
-        sr_bands = tile.bands20
+        if sr60 is not None:
+            sr = np.concatenate((sr20, sr60), axis=2)
+            sr_bands = tile.bands20 + tile.bands60
+        else:
+            sr = sr20
+            sr_bands = tile.bands20
 
-    bands = []
-    if args.copy_original_bands:
-        for i, b in enumerate(tile.bands10):
-            bands.append((b.description, tile.data10[:, :, i]))
-    for i, b in enumerate(sr_bands):
-        bands.append(("SR" + b.description, sr[:, :, i]))
+        bands = []
+        if args.copy_original_bands:
+            for i, b in enumerate(tile.bands10):
+                bands.append((b.description, tile.data10[:, :, i]))
+        for i, b in enumerate(sr_bands):
+            bands.append(("SR" + b.description, sr[:, :, i]))
 
-    geot = (
-        shifted_geotransform(tile.geotransform, tile.roi.xmin, tile.roi.ymin)
-        if tile.geotransform
-        else None
-    )
-    fmt = write_bands(
-        output_file, bands, args.output_file_format, geot, tile.projection
-    )
+        geot = (
+            shifted_geotransform(tile.geotransform, tile.roi.xmin, tile.roi.ymin)
+            if tile.geotransform
+            else None
+        )
+    with profiling.span("s2_supres.write"):
+        fmt = write_bands(
+            output_file, bands, args.output_file_format, geot, tile.projection
+        )
     print(f"Wrote {len(bands)} bands to {output_file} ({fmt})")
     for desc, _ in bands:
         print(desc)

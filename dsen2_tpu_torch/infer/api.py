@@ -33,6 +33,7 @@ from dsen2_tpu_torch.ops.tiling import (
     PatchGrid, gather_patches, pad_symmetric, recompose_positions, write_interiors,
 )
 from dsen2_tpu_torch.parallel.mesh import primary_device
+from dsen2_tpu_torch.utils import profiling
 from dsen2_tpu_torch.weights import default_params, params_to_torch
 
 __all__ = [
@@ -249,8 +250,23 @@ def _run(
     through the banded engine. With a mesh of several devices, the tile's
     grid rows shard over its 'data' axis (parallel.inference.
     sr_tile_sharded), one output band per shard; a one-device mesh runs
-    this single-device path on its device."""
+    this single-device path on its device. The call is one span, api.run,
+    with its route and its 10 m pixels (px)."""
+    h10, w10 = rasters[0].shape[:2]
     if mesh is not None and mesh.devices.size > 1:
+        route = "mesh"
+    elif not device_output and h10 * w10 >= _BANDED_THRESHOLD_PX:
+        route = "banded"
+    else:
+        route = "one_shot"
+    with profiling.span("api.run", route=route, px=h10 * w10):
+        return _run_route(route, rasters, lr_factor, cfg, params, infer_cfg, device,
+                          device_output, mesh)
+
+
+def _run_route(route, rasters, lr_factor, cfg, params, infer_cfg, device, device_output, mesh):
+    """_run's work along `route`."""
+    if route == "mesh":
         if device_output:
             raise ValueError(
                 "device_output=True is not supported with a multi-device mesh: "
@@ -262,21 +278,24 @@ def _run(
         primary_device(mesh, device)
         return sr_tile_sharded(params, rasters, lr_factor, cfg, infer_cfg, mesh)
     dev = resolve_device(device if mesh is None else primary_device(mesh, device))
-    out_dtype = _output_dtype(infer_cfg.output_dtype)
-    _validate_inputs(rasters, lr_factor, cfg, infer_cfg)
-    h10, w10 = rasters[0].shape[:2]
-    if not device_output and h10 * w10 >= _BANDED_THRESHOLD_PX:
+    if route == "banded":
         from dsen2_tpu_torch.infer.engine import sr_banded
 
         return sr_banded(rasters, lr_factor, cfg, params, infer_cfg, device=dev)
-    grids = build_grids([r.shape for r in rasters], lr_factor, infer_cfg)
-    interior = infer_cfg.patch_size - 2 * infer_cfg.border
-    batch = min(infer_cfg.batch_size, grids[0].num_patches)
-    starts, positions, _ = _prepare_schedule(grids, (h10, w10), interior, batch)
+    with profiling.span("api.prepare"):
+        out_dtype = _output_dtype(infer_cfg.output_dtype)
+        _validate_inputs(rasters, lr_factor, cfg, infer_cfg)
+        h10, w10 = rasters[0].shape[:2]
+        grids = build_grids([r.shape for r in rasters], lr_factor, infer_cfg)
+        interior = infer_cfg.patch_size - 2 * infer_cfg.border
+        batch = min(infer_cfg.batch_size, grids[0].num_patches)
+        starts, positions, _ = _prepare_schedule(grids, (h10, w10), interior, batch)
+        tparams = params_to_torch(params, dev)
+    profiling.count("infer.patches", grids[0].num_patches)
 
     with torch.no_grad():
         out = sr_tile(
-            params_to_torch(params, dev),
+            tparams,
             tuple(stage_raster(r, dev) for r in rasters),
             starts, positions,
             cfg=cfg, infer_cfg=infer_cfg, grids=grids, out_hw=(h10, w10),
@@ -343,7 +362,16 @@ def _run_ensembled(
     host (the band decomposition depends on the orientation) and runs
     sr_tile_sharded with device_result=True; every shard's band folds into
     the f32 sum on the mesh's first device, and the host reads back one
-    mosaic. A one-device mesh runs the single-device path on its device."""
+    mosaic. A one-device mesh runs the single-device path on its device.
+    The call is one span, api.run, with route "ensemble" and its 10 m
+    pixels (px); the transforms' own calls nest inside it."""
+    h10, w10 = rasters[0].shape[:2]
+    with profiling.span("api.run", route="ensemble", px=h10 * w10):
+        return _ensemble(rasters, lr_factor, cfg, params, infer_cfg, device, mesh)
+
+
+def _ensemble(rasters, lr_factor, cfg, params, infer_cfg, device, mesh) -> np.ndarray:
+    """_run_ensembled's work."""
     from dsen2_tpu_torch.infer.engine import sr_banded
     from dsen2_tpu_torch.ops.dihedral import dihedral_np, dihedral_static, inverse_code
 

@@ -28,7 +28,9 @@ row, which is merged into the last band (the reference's last-write-wins).
 
 from __future__ import annotations
 
+import collections.abc
 import concurrent.futures
+import contextvars
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -51,13 +53,31 @@ from dsen2_tpu_torch.infer.api import (
 from dsen2_tpu_torch.ops.tiling import (
     PatchGrid, pad_symmetric, recompose_positions, symmetric_index,
 )
+from dsen2_tpu_torch.utils import profiling
 from dsen2_tpu_torch.weights import params_to_torch
 
 __all__ = ["plan_bands", "sr_banded", "band_window_rows", "transfer_bytes"]
 
+
+class _TransferBytes(collections.abc.Mapping):
+    """The counters engine.h2d_bytes and engine.d2h_bytes (utils/profiling)
+    under the keys "h2d" and "d2h"."""
+
+    def __getitem__(self, key: str) -> int:
+        if key not in ("h2d", "d2h"):
+            raise KeyError(key)
+        return profiling.counters().get(f"engine.{key}_bytes", 0)
+
+    def __iter__(self):
+        return iter(("h2d", "d2h"))
+
+    def __len__(self) -> int:
+        return 2
+
+
 # Bytes of the input windows staged ("h2d") and of the bands read back
 # ("d2h") by sr_banded, summed over calls; readers take differences.
-transfer_bytes = {"h2d": 0, "d2h": 0}
+transfer_bytes = _TransferBytes()
 
 
 def plan_bands(ny: int, rows_per_band: int):
@@ -149,33 +169,46 @@ def sr_banded(
     nothing back: band k+1 is queued before band k is yielded, so a consumer
     that drains as it iterates keeps one band computing and about two bands
     of output on the device (holding every band holds the whole mosaic).
-    Adds the bytes it moves to `transfer_bytes`."""
+    Counts the bytes it moves (engine.h2d_bytes, engine.d2h_bytes), its
+    bands and patches (utils/profiling counters).
+
+    Its spans: engine.fill (entry to the first band queued, api.prepare
+    inside), engine.stage (a band's windows, on the stager thread),
+    engine.wait_stage (the issuing thread waiting for them), engine.band
+    (queueing a band's compute), engine.wait_drain (the issuing thread
+    waiting for the previous band's drain), engine.drain (the drain thread's
+    wait for the copy and its move into the mosaic) and engine.tail (the
+    last band queued to the mosaic returned)."""
     if rows_per_band < 1:
         raise ValueError(f"rows_per_band must be >= 1, got {rows_per_band}")
-    dev = resolve_device(device)
-    out_dtype = _output_dtype(infer_cfg.output_dtype)
-    _validate_inputs(rasters, lr_factor, cfg, infer_cfg)
-    h10, w10 = rasters[0].shape[:2]
-    grids = build_grids([r.shape for r in rasters], lr_factor, infer_cfg)
-    interior = infer_cfg.patch_size - 2 * infer_cfg.border
+    entered = profiling.now()
+    with profiling.span("api.prepare"):
+        dev = resolve_device(device)
+        out_dtype = _output_dtype(infer_cfg.output_dtype)
+        _validate_inputs(rasters, lr_factor, cfg, infer_cfg)
+        h10, w10 = rasters[0].shape[:2]
+        grids = build_grids([r.shape for r in rasters], lr_factor, infer_cfg)
+        interior = infer_cfg.patch_size - 2 * infer_cfg.border
 
-    starts_all = [g.flat_starts() for g in grids]
-    pos_all = recompose_positions((h10, w10), interior)
-    ny = len(grids[0].starts_i)
-    nx = pos_all.shape[0] // ny
-    tparams = params_to_torch(params, dev)
+        starts_all = [g.flat_starts() for g in grids]
+        pos_all = recompose_positions((h10, w10), interior)
+        ny = len(grids[0].starts_i)
+        nx = pos_all.shape[0] // ny
+        tparams = params_to_torch(params, dev)
 
-    # Host rasters stream per-band windows; tensors are padded once on the
-    # device and every band gathers from the whole padded raster.
-    windowed = not any(torch.is_tensor(r) for r in rasters)
-    if windowed:
-        host = [np.asarray(r) for r in rasters]
-    else:
-        compute_dtype = getattr(torch, infer_cfg.compute_dtype)
-        inputs = tuple(pad_symmetric(_cast(stage_raster(r, dev), compute_dtype), g.border)
-                       for r, g in zip(rasters, grids))
-    batch = min(infer_cfg.batch_size, nx * min(rows_per_band, ny))
-    band_rows = plan_bands(ny, rows_per_band)
+        # Host rasters stream per-band windows; tensors are padded once on
+        # the device and every band gathers from the whole padded raster.
+        windowed = not any(torch.is_tensor(r) for r in rasters)
+        if windowed:
+            host = [np.asarray(r) for r in rasters]
+        else:
+            compute_dtype = getattr(torch, infer_cfg.compute_dtype)
+            inputs = tuple(pad_symmetric(_cast(stage_raster(r, dev), compute_dtype), g.border)
+                           for r, g in zip(rasters, grids))
+        batch = min(infer_cfg.batch_size, nx * min(rows_per_band, ny))
+        band_rows = plan_bands(ny, rows_per_band)
+    profiling.count("infer.patches", grids[0].num_patches)
+    last_queued = []  # the mark after the last band is queued (engine.tail)
 
     cuda = dev.type == "cuda"
     h2d = torch.cuda.Stream(dev) if cuda and windowed else None
@@ -186,6 +219,10 @@ def sr_banded(
         """Host schedule for band k; in windowed mode also fills and ships
         its input windows (on the stager thread, on the h2d stream) and
         returns the event the compute stream must wait on."""
+        with profiling.span("engine.stage", k=k):
+            return _make_band(k)
+
+    def _make_band(k):
         r0, r1 = band_rows[k]
         sl = slice(r0 * nx, r1 * nx)
         band_pos = pos_all[sl].copy()
@@ -203,7 +240,7 @@ def sr_banded(
                     shifted.append(s[sl] - np.asarray([w0, 0], s.dtype))
                 if cuda:
                     ready = _record(h2d)
-            transfer_bytes["h2d"] += sum(w.nbytes for w in wins)
+            profiling.count("engine.h2d_bytes", sum(w.nbytes for w in wins))
             band_inputs = tuple(wins)
             stacked = np.stack(shifted, axis=1)
         else:
@@ -239,17 +276,26 @@ def sr_banded(
             for k in range(nband):
                 if pool is not None:
                     while len(pending) <= lookahead and k + len(pending) < nband:
-                        pending.append(pool.submit(make_band, k + len(pending)))
-                    band_inputs, st, ps, y_off, band_h, ready = pending.pop(0).result()
+                        pending.append(pool.submit(contextvars.copy_context().run, make_band,
+                                                   k + len(pending)))
+                    with profiling.span("engine.wait_stage", k=k):
+                        band_inputs, st, ps, y_off, band_h, ready = pending.pop(0).result()
                 else:
                     band_inputs, st, ps, y_off, band_h, ready = make_band(k)
-                if ready is not None:
-                    compute.wait_event(ready)
-                    for w in band_inputs:
-                        w.record_stream(compute)
-                with torch.no_grad():
-                    band = sr_tile(tparams, band_inputs, st, ps, cfg=cfg, infer_cfg=infer_cfg,
-                                   grids=grids, out_hw=(band_h, w10), pad_inputs=False)
+                with profiling.span("engine.band", k=k):
+                    if ready is not None:
+                        compute.wait_event(ready)
+                        for w in band_inputs:
+                            w.record_stream(compute)
+                    with torch.no_grad():
+                        band = sr_tile(tparams, band_inputs, st, ps, cfg=cfg,
+                                       infer_cfg=infer_cfg, grids=grids, out_hw=(band_h, w10),
+                                       pad_inputs=False)
+                profiling.count("engine.bands")
+                if k == 0:
+                    profiling.record("engine.fill", entered)
+                if k == nband - 1:
+                    last_queued.append(profiling.now())
                 if prev is not None:
                     yield prev
                 prev = (emit(band), y_off, band_h)
@@ -266,12 +312,13 @@ def sr_banded(
 
     def drain(got, y0, band_h):
         """Wait for band's copy, then move its rows into the output."""
-        if cuda:
-            pinned, copied = got
-            copied.synchronize()
-            got = pinned
-        rows = _host_view(got, out_dtype)
-        out[y0 : y0 + band_h] = rows
+        with profiling.span("engine.drain", y0=y0):
+            if cuda:
+                pinned, copied = got
+                copied.synchronize()
+                got = pinned
+            rows = _host_view(got, out_dtype)
+            out[y0 : y0 + band_h] = rows
         return rows.nbytes
 
     # The rows move on a worker thread (numpy copies without the GIL), so
@@ -282,8 +329,11 @@ def sr_banded(
         pending = None
         for band in band_iter(start_readback if cuda else (lambda band: band)):
             if pending is not None:
-                transfer_bytes["d2h"] += pending.result()
-            pending = drainer.submit(drain, *band)
+                with profiling.span("engine.wait_drain"):
+                    profiling.count("engine.d2h_bytes", pending.result())
+            pending = drainer.submit(contextvars.copy_context().run, drain, *band)
         if pending is not None:
-            transfer_bytes["d2h"] += pending.result()
+            with profiling.span("engine.wait_drain"):
+                profiling.count("engine.d2h_bytes", pending.result())
+    profiling.record("engine.tail", last_queued[0] if last_queued else None)
     return out

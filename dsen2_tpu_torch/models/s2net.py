@@ -44,6 +44,7 @@ from dsen2_tpu_torch.core.config import ModelConfig
 from dsen2_tpu_torch.ops.conv import PRECISIONS, conv3x3
 from dsen2_tpu_torch.ops.resblock import fused_resblock
 from dsen2_tpu_torch.ops.resblock_chain import fused_resblock_chain
+from dsen2_tpu_torch.utils import profiling
 
 Params = Dict[str, Dict]
 
@@ -140,8 +141,9 @@ def apply(
         for k in range(cfg.num_layers):
             x = checkpoint(block, x, k, use_reentrant=False) if remat else block(x, k)
     elif passes == 3 or (cfg.num_layers % 2 == 0 and x.shape[1] % 8 == 0):
-        x = fused_resblock_chain(x, blk["w1"], blk["b1"], blk["w2"], blk["b2"],
-                                 scale=cfg.residual_scale, passes=passes)
+        with profiling.span("s2net.b1"):
+            x = fused_resblock_chain(x, blk["w1"], blk["b1"], blk["w2"], blk["b2"],
+                                     scale=cfg.residual_scale, passes=passes)
     else:
         h = x.shape[1]
         tile_rows = next((t for t in (16, 8, 4, 2) if h % t == 0), h)

@@ -4,7 +4,9 @@
 with a plain C interface, at first use, into `build/kernels/` beside the
 package (listed in .gitignore). The library's name carries a hash of the
 sources, so an edit rebuilds and an unchanged tree reuses it. It is loaded
-with ctypes. A failed build raises; nothing falls back.
+with ctypes. A failed build raises; nothing falls back. Each build adds to
+the counters kernel.builds and kernel.build_s (utils/profiling), so a build
+inside a measured stretch shows.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import subprocess
 import tempfile
 import threading
 import time
+
+from dsen2_tpu_torch.utils import profiling
 
 __all__ = ["load_library", "build_log"]
 
@@ -94,6 +98,8 @@ def load_library() -> ctypes.CDLL:
             os.replace(tmp + ".ptxas", path + ".ptxas")
             os.replace(tmp, path)
             build_log.update(path=path, seconds=seconds, ptxas=report)
+            profiling.count("kernel.builds")
+            profiling.count("kernel.build_s", seconds)
             print(f"dsen2_tpu_torch: built {os.path.basename(path)} in {seconds:.1f} s")
         else:
             report = []

@@ -34,12 +34,14 @@ conv in their own dtype at every class, as in the JAX package.
 
 from __future__ import annotations
 
+import contextvars
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from dsen2_tpu_torch.core.device import tf32_disabled, tf32_for_bf16_operands
+from dsen2_tpu_torch.utils import profiling
 
 __all__ = ["conv3x3", "PRECISIONS"]
 
@@ -157,21 +159,32 @@ def _backward(g, x, w, precision: str, need_x: bool, need_w: bool):
 
 
 class _ClassConv(torch.autograd.Function):
+    """The conv at its class; each forward and each backward is one span,
+    conv.class. On the card autograd runs the backward on a thread of its
+    own, so the forward's context goes with it."""
+
     @staticmethod
     def forward(ctx, x, w, b, precision):
         ctx.save_for_backward(x, w)
         ctx.precision = precision
-        return _forward(x, w, b, precision)
+        ctx.spans = contextvars.copy_context()
+        with profiling.span("conv.class"):
+            return _forward(x, w, b, precision)
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        dx = dw = db = None
-        if need_x or need_w:
-            dx, dw = _backward(g, x, w, ctx.precision, need_x, need_w)
-        if need_b:
-            db = g.sum(dim=(0, 1, 2))
+        return ctx.spans.run(_ClassConv._backward, ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
+        with profiling.span("conv.class"):
+            x, w = ctx.saved_tensors
+            need_x, need_w, need_b = ctx.needs_input_grad[:3]
+            dx = dw = db = None
+            if need_x or need_w:
+                dx, dw = _backward(g, x, w, ctx.precision, need_x, need_w)
+            if need_b:
+                db = g.sum(dim=(0, 1, 2))
         return dx, dw, db, None
 
 

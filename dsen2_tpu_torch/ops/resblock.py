@@ -28,9 +28,9 @@ def fused_resblock(x, w1, b1, w2, b2, *, scale: float = 0.1, tile_rows: int = 16
     x + scale * conv2(relu(conv1(x))) with SAME zero padding.
 
     A CUDA tensor goes through the kernels (`launch_blocks`, one block); a
-    CPU tensor through `fused_resblock_plain`. `.launches` counts residual
-    blocks run on the card, one per call, whatever the number of CUDA
-    launches the block takes."""
+    CPU tensor through `fused_resblock_plain`. The counter b2.blocks (and
+    `.launches`) counts residual blocks run on the card, one per call,
+    whatever the number of CUDA launches the block takes."""
     check_args(x, w1[None], b1[None], w2[None], b2[None], 1)
     h = x.shape[1]
     if h % tile_rows:
@@ -45,3 +45,4 @@ def fused_resblock(x, w1, b1, w2, b2, *, scale: float = 0.1, tile_rows: int = 16
 
 
 fused_resblock.launches = 0
+fused_resblock.counter = "b2.blocks"

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from dsen2_tpu_torch.core.device import tf32_disabled
+from dsen2_tpu_torch.utils import profiling
 
 __all__ = [
     "fused_resblock_chain", "resblock_chain_plain", "resblock_plain",
@@ -125,8 +126,11 @@ _launch_lock = threading.Lock()
 
 
 def count_launches(wrapper, n: int) -> None:
-    """Add n to wrapper.launches. Mesh shards launch from several host
-    threads at once, and += on an attribute is not atomic."""
+    """Add n to the wrapper's counter (utils/profiling, named by
+    wrapper.counter) and to wrapper.launches, the same tally, which a caller
+    may reset. Mesh shards launch from several host threads at once, and +=
+    on an attribute is not atomic."""
+    profiling.count(wrapper.counter, n)
     with _launch_lock:
         wrapper.launches += n
 
@@ -196,9 +200,10 @@ def fused_resblock_chain(x, w1, b1, w2, b2, *, scale: float = 0.1, passes: int =
     bf16x3 (the "high" class, f32 x only).
 
     A CUDA tensor goes through the kernels (`launch_blocks`), any H and W; a
-    CPU tensor through `resblock_chain_plain`. `.launches` counts residual
-    blocks run on the card, K per call, whatever the number of CUDA launches
-    a block takes (two convs, plus one split per call for f32 x)."""
+    CPU tensor through `resblock_chain_plain`. The counter b1.blocks (and
+    `.launches`) counts residual blocks run on the card, K per call, whatever
+    the number of CUDA launches a block takes (two convs, plus one split per
+    call for f32 x)."""
     check_args(x, w1, b1, w2, b2, passes)
     if x.device.type == "cpu":
         return resblock_chain_plain(x, w1, b1, w2, b2, scale=scale, passes=passes)
@@ -208,3 +213,4 @@ def fused_resblock_chain(x, w1, b1, w2, b2, *, scale: float = 0.1, passes: int =
 
 
 fused_resblock_chain.launches = 0
+fused_resblock_chain.counter = "b1.blocks"

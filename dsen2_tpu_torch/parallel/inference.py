@@ -26,6 +26,7 @@ that batch.
 from __future__ import annotations
 
 import concurrent.futures
+import contextvars
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,6 +39,7 @@ from dsen2_tpu_torch.infer.api import (
 )
 from dsen2_tpu_torch.ops.tiling import recompose_positions
 from dsen2_tpu_torch.parallel.mesh import Mesh
+from dsen2_tpu_torch.utils import profiling
 from dsen2_tpu_torch.weights import params_to_torch
 
 __all__ = [
@@ -77,7 +79,8 @@ def run_on_shards(devices: Sequence[torch.device], fn: Callable[[int], List[torc
         return out
 
     with concurrent.futures.ThreadPoolExecutor(len(devices)) as pool:
-        futures = [pool.submit(run, s) for s in range(len(devices))]
+        futures = [pool.submit(contextvars.copy_context().run, run, s)
+                   for s in range(len(devices))]
         return [f.result() for f in futures]
 
 
@@ -109,6 +112,7 @@ def sr_tiles_sharded(
     batch = min(infer_cfg.batch_size, grids[0].num_patches)
     starts, positions, _ = _prepare_schedule(grids, (h10, w10), interior, batch)
     tparams = _params_on(params, devs)
+    profiling.count("infer.patches", n * grids[0].num_patches)
     per = n // ndev
 
     def shard(s: int) -> List[torch.Tensor]:
@@ -177,6 +181,7 @@ def sr_tile_sharded(
     grids = build_grids([r.shape for r in rasters], lr_factor, infer_cfg)
     interior = infer_cfg.patch_size - 2 * infer_cfg.border
 
+    profiling.count("infer.patches", grids[0].num_patches)
     ny = len(grids[0].starts_i)
     nx = len(grids[0].starts_j)
     bands = plan_shard_bands(ny, interior, h10, ndev)

@@ -29,6 +29,7 @@ from dsen2_tpu_torch.core.config import ModelConfig
 from dsen2_tpu_torch.models import s2net
 from dsen2_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, ShardedParam, batch_sharding
 from dsen2_tpu_torch.train.losses import mae, mse
+from dsen2_tpu_torch.utils import profiling
 
 __all__ = ["make_train_step", "make_eval_step"]
 
@@ -106,11 +107,14 @@ def make_train_step(
         return s2net.apply(p, xs, cfg, precision=precision, remat=remat, use_kernels=False)
 
     def step(params, inputs, target):
-        shards = shard_batch(mesh, inputs, target)
-        loss, sq = _sharded_metrics(forward, params, shards, _primary(mesh, shards))
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
+        with profiling.span("train.step"):
+            shards = shard_batch(mesh, inputs, target)
+            loss, sq = _sharded_metrics(forward, params, shards, _primary(mesh, shards))
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            with profiling.span("train.optimizer"):
+                optimizer.step()
+        profiling.count("train.steps")
         return {"loss": loss.detach(), "mse": sq}
 
     return step

@@ -22,6 +22,7 @@ and the params live on the mesh's first device.
 
 from __future__ import annotations
 
+import contextvars
 import copy
 import dataclasses
 import os
@@ -37,6 +38,7 @@ from dsen2_tpu_torch.core.device import resolve_device, upload
 from dsen2_tpu_torch.models import s2net
 from dsen2_tpu_torch.train.callbacks import BestCheckpoint, LossLogger, ReduceLROnPlateau
 from dsen2_tpu_torch.train.nadam import get_lr, load_optimizer_state, make_optimizer, set_lr
+from dsen2_tpu_torch.utils import profiling
 from dsen2_tpu_torch.weights import params_to_torch
 
 __all__ = ["TrainState", "fit", "make_optimizer", "restore_fit_state", "train_step"]
@@ -124,6 +126,7 @@ def _snapshot(params, opt) -> Dict:
     }
 
 
+@profiling.traced("fit")
 def fit(
     cfg: ModelConfig,
     train_cfg: TrainConfig,
@@ -164,7 +167,12 @@ def fit(
     `train_inputs` may instead be a data/streaming.py::StreamingPatchDataset
     (pass train_labels=None); the epoch then streams tile archives off disk
     with bounded RAM, and the val split defaults to ds.load_val() when
-    val_labels is None."""
+    val_labels is None.
+
+    A call is one span, fit; fit.setup covers its entry to the first epoch
+    (fit.stage: stage_dataset), and each epoch is a fit.epoch span.
+    Counts train.steps and train.samples (utils/profiling counters)."""
+    entered = profiling.now()
     # parallel/ imports train/losses.py, so it is imported here.
     from dsen2_tpu_torch.parallel import batch_sharding, make_eval_step, make_mesh, make_train_step
     from dsen2_tpu_torch.parallel.mesh import DATA_AXIS, primary_device
@@ -203,11 +211,12 @@ def fit(
     if stage_data:
         from dsen2_tpu_torch.train.staged import stage_dataset
 
-        staged = stage_dataset(
-            cfg, train_cfg.batch_size, train_inputs, train_labels, val_inputs, val_labels,
-            device=dev, precision=precision, remat=remat, augment=train_cfg.augment,
-            mesh=mesh,
-        )
+        with profiling.span("fit.stage"):
+            staged = stage_dataset(
+                cfg, train_cfg.batch_size, train_inputs, train_labels, val_inputs, val_labels,
+                device=dev, precision=precision, remat=remat, augment=train_cfg.augment,
+                mesh=mesh,
+            )
 
     def place_batch(arrs):
         """Each array on the device, or under a mesh split over its data
@@ -318,6 +327,7 @@ def fit(
 
             return produce()
 
+    profiling.record("fit.setup", entered)
     try:
         _epoch_loop(
             train_cfg, train_inputs, train_labels, val_inputs, val_labels,
@@ -365,7 +375,12 @@ def _prefetch(gen, depth: int = 2):
 
     def run():
         try:
-            for item in gen:
+            batches = iter(gen)
+            while True:
+                with profiling.span("fit.produce"):
+                    item = next(batches, q)  # the queue marks the end
+                if item is q:
+                    break
                 if not put(("ok", item)):
                     return
         except BaseException as e:  # noqa: BLE001 — reraised on the consumer
@@ -373,11 +388,13 @@ def _prefetch(gen, depth: int = 2):
             return
         put(("end", None))
 
-    t = threading.Thread(target=run, daemon=True)
+    # The producer's spans are children of the span that started it.
+    t = threading.Thread(target=contextvars.copy_context().run, args=(run,), daemon=True)
     t.start()
     try:
         while True:
-            kind, item = q.get()
+            with profiling.span("fit.wait_batch"):
+                kind, item = q.get()
             if kind == "err":
                 raise item
             if kind == "end":
@@ -398,51 +415,53 @@ def _epoch_loop(
     save_state, staged=None, stream_ds=None, val_producer_fn=None,
 ):
     for epoch in range(start_epoch, epochs):
-        t0 = time.time()
-        if staged is not None:
-            loss, mse_, val_loss = _staged_epoch(staged, train_cfg, params, opt, rng, n, epoch)
-        else:
-            if stream_ds is not None:
-                producer = _stream_producer(stream_ds, train_cfg, epoch, place_batch)
+        with profiling.span("fit.epoch", epoch=epoch):
+            t0 = time.time()
+            if staged is not None:
+                loss, mse_, val_loss = _staged_epoch(staged, train_cfg, params, opt, rng, n, epoch)
             else:
-                producer = _host_producer(
-                    train_cfg, train_inputs, train_labels, rng, n, place_batch, epoch,
+                if stream_ds is not None:
+                    producer = _stream_producer(stream_ds, train_cfg, epoch, place_batch)
+                else:
+                    producer = _host_producer(
+                        train_cfg, train_inputs, train_labels, rng, n, place_batch, epoch,
+                    )
+                loss, mse_, val_loss = _run_host_epoch(
+                    producer, train_cfg, val_inputs, val_labels, step, evaluate, place_batch,
+                    val_producer_fn,
                 )
-            loss, mse_, val_loss = _run_host_epoch(
-                producer, train_cfg, val_inputs, val_labels, step, evaluate, place_batch,
-                val_producer_fn,
-            )
 
-        new_lr = plateau.step(val_loss)
-        if new_lr != get_lr(opt):
-            set_lr(opt, new_lr)
+            with profiling.span("fit.epoch_end"):
+                new_lr = plateau.step(val_loss)
+                if new_lr != get_lr(opt):
+                    set_lr(opt, new_lr)
 
-        # Publish the state BEFORE the history appends: if an interrupt
-        # lands between them the checkpoint under-counts the epoch (safe:
-        # one epoch re-runs on resume) rather than skipping one.
-        if train_cfg.out_dir:
-            live.update(_snapshot(params, opt))
-        history["loss"].append(loss)
-        history["val_loss"].append(val_loss)
-        history["mse"].append(mse_)
-        history["lr"].append(new_lr)
-        if logger:
-            logger.on_epoch_end(epoch, loss, val_loss, new_lr, last=epoch == epochs - 1)
-        if ckpt:
-            ckpt.maybe_save(val_loss, params)
-        # Periodic full-state checkpoint (resume after any crash, not only
-        # an interrupt), and one on the final epoch so that a finished run
-        # can be extended.
-        done = len(history["loss"])
-        if train_cfg.state_every and (
-            done % train_cfg.state_every == 0 or epoch == epochs - 1
-        ):
-            save_state()
-        if verbose:
-            print(
-                f"epoch {epoch}: loss {loss:.3e} val {val_loss:.3e} "
-                f"lr {new_lr:.1e} ({time.time() - t0:.1f}s)"
-            )
+                # Publish the state BEFORE the history appends: if an interrupt
+                # lands between them the checkpoint under-counts the epoch (safe:
+                # one epoch re-runs on resume) rather than skipping one.
+                if train_cfg.out_dir:
+                    live.update(_snapshot(params, opt))
+                history["loss"].append(loss)
+                history["val_loss"].append(val_loss)
+                history["mse"].append(mse_)
+                history["lr"].append(new_lr)
+                if logger:
+                    logger.on_epoch_end(epoch, loss, val_loss, new_lr, last=epoch == epochs - 1)
+                if ckpt:
+                    ckpt.maybe_save(val_loss, params)
+                # Periodic full-state checkpoint (resume after any crash, not only
+                # an interrupt), and one on the final epoch so that a finished run
+                # can be extended.
+                done = len(history["loss"])
+                if train_cfg.state_every and (
+                    done % train_cfg.state_every == 0 or epoch == epochs - 1
+                ):
+                    save_state()
+                if verbose:
+                    print(
+                        f"epoch {epoch}: loss {loss:.3e} val {val_loss:.3e} "
+                        f"lr {new_lr:.1e} ({time.time() - t0:.1f}s)"
+                    )
 
 
 def _staged_epoch(staged, train_cfg, params, opt, rng, n, epoch):
@@ -453,14 +472,18 @@ def _staged_epoch(staged, train_cfg, params, opt, rng, n, epoch):
     idx, mask = pad_perm(rng.permutation(n), train_cfg.batch_size)
     aug = epoch_aug_codes(train_cfg.seed, epoch, *idx.shape)
     dev = staged.val_idx.device
-    loss, mse_ = staged.train_epoch(
-        params, opt, staged.train_inputs, staged.train_labels,
-        upload(idx, dev), upload(mask, dev), upload(aug, dev),
-    )
-    vloss, _ = staged.eval_epoch(
-        params, staged.val_inputs, staged.val_labels, staged.val_idx, staged.val_mask
-    )
-    loss, mse_, vloss = torch.stack((loss, mse_, vloss)).cpu().tolist()
+    with profiling.span("fit.train"):
+        loss, mse_ = staged.train_epoch(
+            params, opt, staged.train_inputs, staged.train_labels,
+            upload(idx, dev), upload(mask, dev), upload(aug, dev),
+        )
+    profiling.count("train.samples", n)
+    with profiling.span("fit.validate"):
+        vloss, _ = staged.eval_epoch(
+            params, staged.val_inputs, staged.val_labels, staged.val_idx, staged.val_mask
+        )
+    with profiling.span("fit.readback"):
+        loss, mse_, vloss = torch.stack((loss, mse_, vloss)).cpu().tolist()
     return loss, mse_, vloss
 
 
@@ -531,11 +554,13 @@ def _run_host_epoch(producer, train_cfg, val_inputs, val_labels, step, evaluate,
     val_producer_fn (streaming datasets) replaces the in-RAM val arrays
     with a per-epoch bounded-memory batch producer."""
     losses, mses, weights = [], [], []
-    for cnt, binputs, btarget in _prefetch(producer):
-        loss, mse_ = step(binputs, btarget)
-        losses.append(loss)
-        mses.append(mse_)
-        weights.append(cnt)
+    with profiling.span("fit.train"):
+        for cnt, binputs, btarget in _prefetch(producer):
+            loss, mse_ = step(binputs, btarget)
+            profiling.count("train.samples", cnt)
+            losses.append(loss)
+            mses.append(mse_)
+            weights.append(cnt)
 
     if val_producer_fn is not None:
         val_producer = val_producer_fn()
@@ -554,11 +579,13 @@ def _run_host_epoch(producer, train_cfg, val_inputs, val_labels, step, evaluate,
         val_producer = produce_val()
 
     vl, vw = [], []
-    for cnt, vi, vt in _prefetch(val_producer):
-        vl.append(evaluate(vi, vt)[0])
-        vw.append(cnt)
+    with profiling.span("fit.validate"):
+        for cnt, vi, vt in _prefetch(val_producer):
+            vl.append(evaluate(vi, vt)[0])
+            vw.append(cnt)
     k = len(losses)
-    host = torch.stack(losses + mses + vl).cpu().numpy().astype(np.float64)
+    with profiling.span("fit.readback"):
+        host = torch.stack(losses + mses + vl).cpu().numpy().astype(np.float64)
     w = np.asarray(weights, np.float64)
     loss = float(np.average(host[:k], weights=w))
     mse_ = float(np.average(host[k : 2 * k], weights=w))

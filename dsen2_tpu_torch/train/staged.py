@@ -36,6 +36,7 @@ from dsen2_tpu_torch.models import s2net
 from dsen2_tpu_torch.ops.dihedral import dihedral_batch
 from dsen2_tpu_torch.parallel.mesh import DATA_AXIS, replicated
 from dsen2_tpu_torch.parallel.train_step import replicate_params
+from dsen2_tpu_torch.utils import profiling
 
 __all__ = [
     "StagedData", "stage_dataset", "make_staged_epoch_fns", "pad_perm", "epoch_aug_codes",
@@ -184,11 +185,14 @@ def make_staged_epoch_fns(
     def train_epoch(params, opt, inputs, labels, idx, mask, aug):
         losses, mses = [], []
         for s in range(idx.shape[0]):
-            loss, mse_ = batch_metrics(params, inputs, labels, idx[s], mask[s],
-                                       aug[s] if augment else None)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
+            with profiling.span("train.step"):
+                loss, mse_ = batch_metrics(params, inputs, labels, idx[s], mask[s],
+                                           aug[s] if augment else None)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                with profiling.span("train.optimizer"):
+                    opt.step()
+            profiling.count("train.steps")
             losses.append(loss.detach())
             mses.append(mse_)
         counts = torch.sum(mask, dim=1)

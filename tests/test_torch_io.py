@@ -3,7 +3,7 @@ and io/writers.py give the same numbers and byte-identical files, apart from
 the two repairs (an EPSG code the GeoKeyDirectory cannot hold raises; the
 writer's messages tell a missing GDAL from a driver that cannot create);
 cli/convert_weights.py writes the JAX CLI's arrays; utils/profiling.py's
-hooks time, trace and annotate."""
+hooks time, trace and name spans."""
 
 import sys
 import types
@@ -186,16 +186,16 @@ def test_profiling_hooks(tmp_path, capsys):
 
     import torch
 
-    from dsen2_tpu_torch.utils.profiling import Timer, annotate, block_and_time, trace
+    from dsen2_tpu_torch.utils.profiling import Timer, block_and_time, span, trace
 
     with Timer("t") as t:
         pass
     assert t.elapsed >= 0 and "Elapsed time:" in capsys.readouterr().out
     out, secs = block_and_time(lambda x: x * 2, torch.ones((8, 8)), repeats=2)
     assert secs > 0 and out[0, 0].item() == 2.0
-    with trace(str(tmp_path)):
-        with annotate("region"):
+    with trace(str(tmp_path)) as got:
+        with span("region"):
             float(torch.ones((16, 16)).sum())
     files = [p for p in glob.glob(str(tmp_path / "**" / "*"), recursive=True)
              if os.path.isfile(p) and os.path.getsize(p) > 0]
-    assert files and any("region" in open(p).read() for p in files)
+    assert files == [got["path"]] and "region" in open(files[0]).read()

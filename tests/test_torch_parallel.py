@@ -348,10 +348,14 @@ class TestSingleTileSharded:
 
 def test_launch_counts_survive_concurrent_shards():
     """Shard workers launch the kernels from several host threads at once;
-    the launch counters must not lose an increment."""
+    the launch counters, and the registry's b1.blocks and b2.blocks, must
+    not lose an increment."""
+    from dsen2_tpu_torch.utils.profiling import counters
+
     saved = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     before = (resblock_chain.fused_resblock_chain.launches, resblock.fused_resblock.launches)
+    counted = counters()
     try:
         def work():
             for _ in range(2000):
@@ -368,6 +372,9 @@ def test_launch_counts_survive_concurrent_shards():
         sys.setswitchinterval(saved)
     assert resblock_chain.fused_resblock_chain.launches - before[0] == 16 * 2000 * 2
     assert resblock.fused_resblock.launches - before[1] == 16 * 2000
+    after = counters()
+    assert after["b1.blocks"] - counted.get("b1.blocks", 0) == 16 * 2000 * 2
+    assert after["b2.blocks"] - counted.get("b2.blocks", 0) == 16 * 2000
 
 
 def test_tf32_scopes_hold_across_threads():
