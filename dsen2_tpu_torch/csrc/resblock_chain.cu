@@ -26,21 +26,31 @@
 // at "default", 0.64 ms, and 24 B at "high", 0.96 ms), so at "default" it
 // cannot reach the operations bound; the split is chosen anyway (limit 4).
 //
-// One CTA = one 16 x 16 output-pixel tile x 128 output channels (M = 256,
-// N = 128); C = 256 runs two such N halves per pixel tile. A persistent grid
-// of one CTA per SM walks the tiles. K = 9 taps x C input channels, taken in
-// chunks of 64 channels (one 128-byte row per pixel) and taps.
-// Threads: 384 = two consumer warpgroups (128 pixel rows each, two m64
-// wgmmas per k16 step, 128 f32 accumulators per thread, setmaxnreg 224) and
-// one producer warpgroup (setmaxnreg 56): its 128 threads copy the windows,
-// its thread 0 the weight slices.
+// Schedule: a cluster of two CTAs (two SMs) takes one 16 x 16 output-pixel
+// tile x 128 output channels at a time (M = 256, N = 128); C = 256 runs two
+// such N halves per pixel tile. CTA rank r owns rows 8r..8r+7 of the tile: 128
+// pixels, M = 128. A persistent grid of as many clusters as fit at once walks
+// the tiles. K = 9 taps x C input channels, taken in chunks of 64 channels
+// (one 128-byte row per pixel) and taps.
+// Threads: 384 = two consumer warpgroups and one producer warpgroup, whose
+// thread 0 copies the weight slices and thread 32 loads the windows. The
+// consumer warpgroups take the CTA's tiles in turn (ping-pong): warpgroup 0
+// the cluster's 1st, 3rd, ... tile, warpgroup 1 the 2nd, 4th, ... Each owns
+// a whole 8 x 16 half: 128 pixel rows, two m64 wgmmas per k16 step, 128 f32
+// accumulators per thread. A warpgroup runs the epilogue of its tile while
+// the other one's wgmmas run the next tile, so the epilogue is off the
+// tensor cores' path except for the last tile of each CTA.
 //
 // Shared memory (bytes; the limit per block is 232,448):
 //                       PASSES = 1          PASSES = 3
-//   weight ring         8 x 16,384          2 x 32,768   (1024-aligned stages)
-//   window ring         2 x 41,472          2 x 82,944   (18 x 18 px x 128 B x planes)
-//   mbarriers           20 x 8              8 x 8
-//   sum                 214,176             231,488      (+ alignment slack, checked)
+//   weight ring         8 x 16,384          4 x 32,768   (1024-aligned stages)
+//   window ring         4 x 23,552          2 x 47,104   (10 x 18 px x 128 B per plane,
+//                                                          planes 1024-aligned)
+//   mbarriers           24 x 8              12 x 8
+//   sum                 225,472             225,376      (+ alignment slack, checked)
+// Registers (setmaxnreg; 65,536 per SM): consumers 232 a thread (128
+// accumulators, 32 for two sets of A fragments), producer 40. ptxas spills
+// nothing (chip_smoke.py phase 1 checks).
 //
 // The five limits of PR 3's kernel and what this one does about each:
 // 1. mma.sync m16n8k16 -> wgmma.mma_async m64n128k16. A (activations) comes
@@ -48,47 +58,82 @@
 //    (the 3x3 shift makes A's rows non-contiguous, which a shared-memory
 //    descriptor cannot express); B (weights) comes from shared memory through
 //    a K-major 128-byte-swizzle descriptor. bf16x3 issues three wgmmas per
-//    k-step into one accumulator. A registers are double-buffered: a step's
-//    ldmatrix writes the set whose wgmmas wgmma.wait_group<1> has retired.
+//    k-step into one accumulator. A registers are double-buffered: a commit
+//    group's ldmatrix writes the set whose wgmmas wgmma.wait_group<1> has
+//    retired. A group is one k16 step at bf16x3 (6 wgmmas) and two at one
+//    pass (4 wgmmas), so that one warpgroup alone keeps the tensor cores
+//    fed; four sets in flight instead would spill at bf16x3 and make ptxas
+//    serialize the wgmmas at one pass.
 // 2. Weights: the host packs them once per call straight into the swizzled
-//    layout the descriptor reads (ops/resblock_chain.py, pack_weights); a
-//    1-D bulk copy (cp.async.bulk ... mbarrier::complete_tx) moves each
-//    (chunk, tap) slice into a ring stage, guarded by full/empty mbarriers.
-//    Each staged slice serves 256 output pixels (PR 3: 64). L2 -> SM weight
-//    bytes per block at [64,128,128,128]: 4,096 tiles x 2 convs x 294,912 B
-//    = 2.42 GB at "default", 4.83 GB at "high" (PR 3: 11.8 / 23.6 GB).
-// 3. Overlap: the producer warpgroup loads the activation window by cp.async
-//    with zero fill (that is the SAME padding), completed on an mbarrier by
-//    cp.async.mbarrier.arrive.noinc, into a ring of two 64-channel windows:
-//    the next chunk, or the next tile's first chunk, lands while the current
-//    one is multiplied; the weight ring runs ahead the same way, and the
-//    epilogue of one tile overlaps the copies of the next. The epilogue does
-//    not overlap the tensor cores: both consumer warpgroups run it at once.
-//    That, not the copies, is what holds this design back (PERF.md, PR 4:
-//    scripts/diagnose_resblock_torch.py measures each part by ablation).
+//    layout the descriptor reads (ops/resblock_chain.py, pack_weights). Each
+//    (chunk, tap) slice goes into a ring stage of both CTAs of the cluster:
+//    each CTA's producer copies half of it by a 1-D bulk copy multicast to
+//    the pair (cp.async.bulk ... multicast::cluster), completing on each
+//    CTA's full mbarrier; a stage is refilled once both CTAs' consumers have
+//    released it (an empty mbarrier that counts one arrive from each CTA;
+//    the remote arrive keeps the default CTA-scope release, since a
+//    cluster-scope one compiles to a GPU-wide fence in the mainloop). So one
+//    L2 read of a slice serves 256 output pixels (the mma.sync kernel: 64),
+//    as when one CTA held all 256. L2 -> SM weight bytes per block at
+//    [64,128,128,128]: 4,096 tiles x 2 convs x 294,912 B = 2.42 GB at
+//    "default", 4.83 GB at "high" (mma.sync: 11.8 / 23.6 GB).
+// 3. Overlap: each window (the tile's 10 x 18 pixels of a 64-channel chunk)
+//    is one TMA box per plane of a 4-D tensor map (C, W, H, planes x B),
+//    zero outside the image (that is the SAME padding), with the 128-byte
+//    swizzle, so ldmatrix is conflict-free; it lands while the chunk before
+//    it is multiplied, and the weight ring runs ahead the same way. Both
+//    rings are consumed in the order the tiles alternate between the
+//    warpgroups. Since a parity wait is only sound one phase ahead, a
+//    warpgroup starts waiting on its tile's ring slots once the other has
+//    passed the waits of its own tile: at the last slice of a tile's
+//    mainloop it passes the turn (named barriers 1 and 2), so the next
+//    tile's wgmmas queue behind the last ones of this tile, and its
+//    epilogue (bias, ReLU or the residual, the plane split, the stores) runs
+//    beside them. A warp releases a window only after the wgmmas that take
+//    its ldmatrix registers have issued: before that the reads may still be
+//    pending, and the next TMA would overwrite them. The ReLU epilogue
+//    transposes inside each quad of lanes so that every store is 16
+//    contiguous bytes: 4-byte stores, as the earlier epilogue made, held back the
+//    other warpgroup's ldmatrix (scripts/diagnose_resblock_torch.py measures
+//    each part by ablation).
 // 4. Waste: two convs per block instead of one fused tile, so no halo
 //    recompute and no padded M rows: 256 MMA rows buy 256 output pixels
 //    (PR 3: 320 for 256). Zero fill of conv2's window masks t outside the
-//    image. A fused tile with bf16x3 planes of both windows does not fit
-//    232,448 B at a 16 x 16 tile, and an 8 x 16 one brings back the halo.
-// 5. Host: packing happens once per wrapper call for all K blocks, and the
-//    shared-memory attribute is set once per instantiation and device.
+//    image. A CTA's window is 10 x 18 pixels for its 8 x 16 (1.41 pixels
+//    loaded per output pixel; 1.27 for a 16 x 16 tile in one CTA), a small
+//    cost beside the weights. A fused tile with bf16x3 planes of both windows
+//    does not fit 232,448 B at a 16 x 16 tile, and an 8 x 16 one brings back
+//    the halo.
+// 5. Host: packing happens once per wrapper call for all K blocks; the
+//    shared-memory attribute and the number of co-resident clusters are set
+//    and read once per instantiation and device; the window tensor map is
+//    encoded per launch (a host call of microseconds).
+//
+// Every output element sums the same bf16 products in the same order as in
+// the earlier schedule, both warpgroups on one 16 x 16 tile (chunk, tap, k16
+// step; hi*hi, lo*hi, hi*lo), from zero, and its epilogue does the same float
+// operations, so the outputs are bit-equal to it.
 
 #include <atomic>
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 16;                           // output tile: 16 x 16 pixels
-constexpr int kWin = kTile + 2;                     // window side, halo 1
-constexpr int kWinPix = kWin * kWin;                // 324
+constexpr int kTile = 16;                           // a cluster's tile: 16 x 16 pixels
+constexpr int kCluster = 2;                         // CTAs per cluster
+constexpr int kRows = kTile / kCluster;             // a CTA's rows of the tile: 8
+constexpr int kWin = kTile + 2;                     // window row: 18 pixels, halo 1
+constexpr int kWinPix = (kRows + 2) * kWin;         // 10 x 18 = 180
 constexpr int kKc = 64;                             // input channels per chunk
 constexpr int kRowBytes = kKc * 2;                  // one pixel row of a chunk: 128 B
-constexpr int kWinPlaneBytes = kWinPix * kRowBytes; // 41,472
-constexpr int kN = 128;                             // output channels per CTA
+constexpr int kWinPlaneBytes = kWinPix * kRowBytes; // 23,040
+constexpr int kWinPlaneStride = 23 * 1024;          // a plane of a window, 1024-aligned
+constexpr int kN = 128;                             // output channels per tile
 constexpr int kSliceBytes = kN * kRowBytes;         // one tap, one chunk, one plane: 16,384
 constexpr int kConsumers = 256;                     // two consumer warpgroups
 constexpr int kThreads = kConsumers + 128;          // + the producer warpgroup
@@ -99,13 +144,16 @@ enum { EPI_RELU = 0, EPI_RESIDUAL = 1 };
 
 template <int PASSES> struct Cfg {
   static constexpr int PLANES = PASSES == 3 ? 2 : 1;
-  static constexpr int STAGES = PASSES == 3 ? 2 : 8;
+  static constexpr int STAGES = PASSES == 3 ? 4 : 8;  // weight ring
+  static constexpr int WINS = PASSES == 3 ? 2 : 4;    // window ring
+  static constexpr int KSG = PASSES == 3 ? 1 : 2;     // k16 steps per wgmma commit group
   static constexpr int STAGE_BYTES = PLANES * kSliceBytes;
-  static constexpr int WIN_BYTES = PLANES * kWinPlaneBytes;
-  static constexpr int BAR_BYTES = (2 + 2 + 2 * STAGES) * 8;
-  static constexpr int USED = STAGES * STAGE_BYTES + 2 * WIN_BYTES + BAR_BYTES;
+  static constexpr int WIN_BYTES = PLANES * kWinPlaneStride;
+  static constexpr int BAR_BYTES = (2 * WINS + 2 * STAGES) * 8;
+  static constexpr int USED = STAGES * STAGE_BYTES + WINS * WIN_BYTES + BAR_BYTES;
   static constexpr int SMEM = USED + 1024 <= kSmemMax ? USED + 1024 : kSmemMax;
   static_assert(USED <= kSmemMax, "shared-memory budget");
+  static_assert((kKc / 16) % (2 * KSG) == 0, "the two A sets alternate within a slice");
 };
 
 struct ConvArgs {
@@ -170,25 +218,66 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (globaltimer_ns() - t0 > kWatchdogNs) __trap();
 }
 
-// 16-byte copy into shared memory; zero fill when !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// Arrive on `bar` once this thread's earlier cp.async copies have landed.
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
+// Copy `bytes` from global memory to CTA-relative address `dst` in every CTA
+// of `mask`, completing on the mbarrier at CTA-relative `bar` in each.
+__device__ __forceinline__ void bulk_copy_multicast(uint32_t dst, const void* src, uint32_t bytes,
+                                                    uint32_t bar, uint16_t mask) {
   asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          dst),
-      "l"(src), "r"(bytes), "r"(bar)
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
       : "memory");
+}
+
+// One box of the 4-D tensor map at `map` (a kernel parameter) into shared
+// memory at `dst`, completing on `bar`; coordinates innermost first, out of
+// range elements zero.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// Every thread of both CTAs: release what came before, acquire the peer's.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+
+// Arrive on the mbarrier at CTA-relative address `bar` in CTA `cta` of the
+// cluster. The default (CTA-scope) release: a .release.cluster arrive
+// compiles to a GPU-wide memory barrier before it, which stalls the
+// warpgroup's wgmma issue; what the arrive orders is the retired wgmmas'
+// reads of the stage, which wgmma.wait_group has completed.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// The consumer warpgroups' turns: named barrier 1 + w lets warpgroup w start
+// its next tile's mainloop once the other warpgroup has passed it on.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kConsumers) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(2 - wg), "n"(kConsumers) : "memory");
+}
+
+// Move a ring position (index i of RING, phase parity) n slots on.
+template <int RING>
+__device__ __forceinline__ void advance(int& i, uint32_t& phase, int n) {
+  i += n;
+  phase ^= (i / RING) & 1;
+  i %= RING;
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -249,6 +338,28 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t 
 
 // ------------------------------------------------------------- element I/O
 
+__device__ __forceinline__ uint32_t bf16x2_bits(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The bf16x3 lo plane of the pair whose hi plane is `hi`: bf16(v - hi).
+__device__ __forceinline__ uint32_t bf16x2_lo_bits(float a, float b, uint32_t hi) {
+  const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  return bf16x2_bits(a - h.x, b - h.y);
+}
+
+// Store a pair as bf16 hi at `off` of plane 0 and, for bf16x3, lo = bf16(v - hi)
+// at `off` of plane 1.
+template <int PASSES>
+__device__ __forceinline__ void store_split(__nv_bfloat16* planes, size_t plane_elems, size_t off,
+                                            float a, float b) {
+  const uint32_t hi = bf16x2_bits(a, b);
+  *reinterpret_cast<uint32_t*>(planes + off) = hi;
+  if (PASSES == 3)
+    *reinterpret_cast<uint32_t*>(planes + plane_elems + off) = bf16x2_lo_bits(a, b, hi);
+}
+
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
@@ -265,17 +376,24 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// Store a pair as bf16 hi at `off` of plane 0 and, for bf16x3, lo = bf16(v - hi)
-// at `off` of plane 1.
-template <int PASSES>
-__device__ __forceinline__ void store_split(__nv_bfloat16* planes, size_t plane_elems, size_t off,
-                                            float a, float b) {
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
-  *reinterpret_cast<__nv_bfloat162*>(planes + off) = hi;
-  if (PASSES == 3) {
-    const float2 h = __bfloat1622float2(hi);
-    *reinterpret_cast<__nv_bfloat162*>(planes + plane_elems + off) =
-        __floats2bfloat162_rn(a - h.x, b - h.y);
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const uint32_t (&u)[4]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+// Lanes q = 0..3 of a quad hold u[jj] = element (q, jj) of a 4 x 4 matrix;
+// afterwards lane q holds column q: u[i] = element (i, q). Two exchanges,
+// across lanes q ^ 2 and then q ^ 1; every lane of the warp takes part.
+__device__ __forceinline__ void quad_transpose(uint32_t (&u)[4], int q) {
+  const bool b1 = q & 2, b0 = q & 1;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const uint32_t r = __shfl_xor_sync(0xffffffffu, b1 ? u[p] : u[p + 2], 2);
+    if (b1) u[p] = r; else u[p + 2] = r;
+  }
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const uint32_t r = __shfl_xor_sync(0xffffffffu, b0 ? u[2 * p] : u[2 * p + 1], 1);
+    if (b0) u[2 * p] = r; else u[2 * p + 1] = r;
   }
 }
 
@@ -312,111 +430,124 @@ __device__ __forceinline__ TileCoord tile_coord(int tile, int H, int W) {
   return t;
 }
 
+// `tiles` counts the clusters' 16 x 16 x 128 tiles; cluster c takes tiles c,
+// c + clusters, ...; each CTA of it the rows of its rank, each warpgroup of
+// the CTA every other one of them.
 template <typename T, int C, int PASSES, int EPI>
-__global__ void __launch_bounds__(kThreads, 1) conv_kernel(const ConvArgs a, int tiles) {
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+    conv_kernel(const ConvArgs a, const __grid_constant__ CUtensorMap win_map, int tiles) {
   using K = Cfg<PASSES>;
-  constexpr int PLANES = K::PLANES, STAGES = K::STAGES;
-  constexpr int KC = C / kKc;  // channel chunks
+  constexpr int PLANES = K::PLANES, STAGES = K::STAGES, WINS = K::WINS;
+  constexpr int KSG = K::KSG;
+  constexpr int KC = C / kKc;     // channel chunks
+  constexpr int SLOTS = KC * 9;   // weight slices per tile
   const int H = a.H, W = a.W;
   const size_t plane_elems = static_cast<size_t>(a.B) * H * W * C;
+  // A 1-D grid of clusters of kCluster x 1 x 1: the CTA's rank in its
+  // cluster (%cluster_ctarank) is blockIdx.x % kCluster.
+  const int rank = blockIdx.x % kCluster;
+  const int cluster = blockIdx.x / kCluster, clusters = gridDim.x / kCluster;
 
-  // Layout: [pad to 1024][weight stages][window ring][barriers].
+  // Layout: [pad to 1024][weight stages][window ring][barriers], at the same
+  // CTA-relative addresses in both CTAs of the cluster.
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t stage_base = (raw + 1023) & ~1023u;
   const uint32_t win_base = stage_base + STAGES * K::STAGE_BYTES;
-  const uint32_t bar_base = win_base + 2 * K::WIN_BYTES;
+  const uint32_t bar_base = win_base + WINS * K::WIN_BYTES;
   if (bar_base + K::BAR_BYTES > raw + K::SMEM) __trap();  // base alignment left no room
-  // Barriers: win_full[2], win_empty[2], full[STAGES], empty[STAGES].
+  // Barriers: win_full[WINS], win_empty[WINS], full[STAGES], empty[STAGES].
   auto win_full = [&](int i) { return bar_base + 8 * i; };
-  auto win_empty = [&](int i) { return bar_base + 8 * (2 + i); };
-  auto full = [&](int i) { return bar_base + 8 * (4 + i); };
-  auto empty = [&](int i) { return bar_base + 8 * (4 + STAGES + i); };
+  auto win_empty = [&](int i) { return bar_base + 8 * (WINS + i); };
+  auto full = [&](int i) { return bar_base + 8 * (2 * WINS + i); };
+  auto empty = [&](int i) { return bar_base + 8 * (2 * WINS + STAGES + i); };
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
-      mbar_init(win_full(i), 128);  // one cp.async arrive per producer thread
-      mbar_init(win_empty(i), kConsumers / 32);  // one arrive per consumer warp
+    for (int i = 0; i < WINS; ++i) {
+      mbar_init(win_full(i), 1);   // the window thread's expect_tx arrive
+      mbar_init(win_empty(i), 4);  // one arrive per warp of the consuming warpgroup
     }
     for (int i = 0; i < STAGES; ++i) {
-      mbar_init(full(i), 1);  // the producer's expect_tx arrive
-      mbar_init(empty(i), 2);  // one arrive per consumer warpgroup
+      mbar_init(full(i), 1);          // this CTA's producer's expect_tx arrive
+      mbar_init(empty(i), kCluster);  // one arrive from each CTA's consumers
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  cluster_sync();  // the peer's barriers are ready before any copy or arrive
 
   if (threadIdx.x >= kConsumers) {
-    // ======================= producer warpgroup: all four warps copy the
-    // windows, thread 0 of it the weight slices
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    // ======================= producer warpgroup: thread 0 copies this CTA's
+    // half of each weight slice, thread 32 loads the windows, each at its own
+    // pace; the other threads have nothing to do
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     const int pt = threadIdx.x - kConsumers;
-    int wbuf = 0, stage = 0;
-    uint32_t wphase = 0, sphase = 0;
-
-    // The 18 x 18 window of 64 channels of chunk kc, every plane, zero outside
-    // the image, into window buffer wbuf: 16 B per copy, pixel rows swizzled
-    // (group g of pixel p at group g ^ (p & 7)) so ldmatrix is conflict-free.
-    auto issue_window = [&](int tile, int kc) {
-      const TileCoord tc = tile_coord<C>(tile, H, W);
-      mbar_wait(win_empty(wbuf), wphase ^ 1);
-      const uint32_t dst0 = win_base + wbuf * K::WIN_BYTES;
-      for (int i = pt; i < PLANES * kWinPix * 8; i += 128) {
-        const int pl = i / (kWinPix * 8), r = i % (kWinPix * 8);
-        const int wp = r >> 3, g = r & 7;
-        const int iy = tc.ty0 - 1 + wp / kWin, ix = tc.tx0 - 1 + wp % kWin;
-        const bool valid = iy >= 0 && iy < H && ix >= 0 && ix < W;
-        const __nv_bfloat16* src = a.src;
-        if (valid)
-          src += pl * plane_elems + ((static_cast<size_t>(tc.b) * H + iy) * W + ix) * C +
-                 kc * kKc + g * 8;
-        cp_async16(dst0 + pl * kWinPlaneBytes + wp * kRowBytes + ((g ^ (wp & 7)) << 4), src,
-                   valid);
+    if (pt == 0) {
+      // One (chunk, tap) weight slice, every plane, per slot: this CTA copies
+      // its half to both CTAs once both have released the stage, and expects
+      // the whole.
+      constexpr int PART = K::STAGE_BYTES / kCluster;
+      int stage = 0;
+      uint32_t sphase = 0;
+      for (int tile = cluster; tile < tiles; tile += clusters) {
+        const int nh = tile % (C / kN);
+        for (int slot = 0; slot < SLOTS; ++slot) {  // (kc, tap) = (slot / 9, slot % 9)
+          mbar_wait(empty(stage), sphase ^ 1);
+          mbar_expect_tx(full(stage), K::STAGE_BYTES);
+          const __nv_bfloat16* src =
+              a.w + static_cast<size_t>(nh * SLOTS + slot) * (K::STAGE_BYTES / 2) +
+              rank * (PART / 2);
+          bulk_copy_multicast(stage_base + stage * K::STAGE_BYTES + rank * PART, src, PART,
+                              full(stage), (1u << kCluster) - 1);
+          if (++stage == STAGES) { stage = 0; sphase ^= 1; }
+        }
       }
-      cp_async_arrive(win_full(wbuf));
-      if (++wbuf == 2) { wbuf = 0; wphase ^= 1; }
-    };
-    // One (chunk, tap) weight slice, every plane, by one bulk copy.
-    auto issue_slice = [&](int nh, int kc, int tap) {
-      if (pt == 0) {
-        mbar_wait(empty(stage), sphase ^ 1);
-        mbar_expect_tx(full(stage), K::STAGE_BYTES);
-        const __nv_bfloat16* src =
-            a.w + static_cast<size_t>((nh * KC + kc) * 9 + tap) * (K::STAGE_BYTES / 2);
-        bulk_copy(stage_base + stage * K::STAGE_BYTES, src, K::STAGE_BYTES, full(stage));
-      }
-      if (++stage == STAGES) { stage = 0; sphase ^= 1; }
-    };
-
-    if (static_cast<int>(blockIdx.x) < tiles) issue_window(blockIdx.x, 0);
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int nh = tile % (C / kN);
-      for (int kc = 0; kc < KC; ++kc) {
-        issue_slice(nh, kc, 0);
-        // The next chunk's window, so that it lands while this chunk runs.
-        const int next = kc + 1 < KC ? tile : tile + gridDim.x;
-        if (next < tiles) issue_window(next, kc + 1 < KC ? kc + 1 : 0);
-        for (int tap = 1; tap < 9; ++tap) issue_slice(nh, kc, tap);
+    } else if (pt == 32) {
+      // Thread 0 of warp 1: the 10 x 18 window of 64 channels of each chunk,
+      // one TMA box per plane, zero outside the image (the SAME padding),
+      // into the next window buffer. The 128-byte swizzle puts 16-byte group
+      // g of window pixel p at group g ^ (p & 7), so ldmatrix is
+      // conflict-free.
+      int wbuf = 0;
+      uint32_t wphase = 0;
+      for (int tile = cluster; tile < tiles; tile += clusters) {
+        const TileCoord tc = tile_coord<C>(tile, H, W);
+        for (int kc = 0; kc < KC; ++kc) {
+          mbar_wait(win_empty(wbuf), wphase ^ 1);
+          mbar_expect_tx(win_full(wbuf), PLANES * kWinPlaneBytes);
+          for (int pl = 0; pl < PLANES; ++pl)
+            tma_load_4d(win_base + wbuf * K::WIN_BYTES + pl * kWinPlaneStride, &win_map,
+                        kc * kKc, tc.tx0 - 1, tc.ty0 + kRows * rank - 1, pl * a.B + tc.b,
+                        win_full(wbuf));
+          if (++wbuf == WINS) { wbuf = 0; wphase ^= 1; }
+        }
       }
     }
   } else {
-    // ======================= two consumer warpgroups: wgmma + epilogue
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    // ======================= two consumer warpgroups, tiles in turn: wgmma +
+    // epilogue
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int wg = threadIdx.x / 128, wq = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     // ldmatrix.x4 addressing: lanes 0-7 rows 0-7 of k 0-7, 8-15 rows 8-15 of
     // k 0-7, 16-23 rows 0-7 of k 8-15, 24-31 rows 8-15 of k 8-15. Row r of
-    // warp wq in m64 chunk mc is output pixel (wg*8 + mc*4 + wq, r).
+    // warp wq in m64 chunk mc is pixel (mc*4 + wq, r) of the CTA's 8 x 16.
     const int arow = (lane & 7) + ((lane >> 3) & 1) * 8, khalf = lane >> 4;
     int pix0[2];
 #pragma unroll
-    for (int mc = 0; mc < 2; ++mc) pix0[mc] = (wg * 8 + mc * 4 + wq) * kWin + arow;
+    for (int mc = 0; mc < 2; ++mc) pix0[mc] = (mc * 4 + wq) * kWin + arow;
 
     float acc[2][64];
-    uint32_t areg[2][2][PLANES][4];  // [buffer][mc][plane]
+    uint32_t areg[2][KSG][2][PLANES][4];  // [set][k16 step][mc][plane]
     int wbuf = 0, stage = 0, prev = -1;
     uint32_t wphase = 0, sphase = 0;
+    // Both rings serve the cluster's tiles in order; warpgroup 1's first
+    // tile starts one tile in.
+    if (wg == 1) {
+      advance<WINS>(wbuf, wphase, KC);
+      advance<STAGES>(stage, sphase, SLOTS);
+    }
 
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    for (int tile = cluster + wg * clusters; tile < tiles; tile += 2 * clusters) {
+      if (tile >= clusters) turn_wait(wg);  // not the cluster's first tile
 #pragma unroll
       for (int mc = 0; mc < 2; ++mc)
 #pragma unroll
@@ -436,151 +567,258 @@ __global__ void __launch_bounds__(kThreads, 1) conv_kernel(const ConvArgs a, int
             key[mc] = p & 7;
           }
           mbar_wait(full(stage), sphase);
+          // Every ring wait of this tile is behind us: the other warpgroup
+          // may wait on its own tile's slots now.
+          if (kc == KC - 1 && tap == 8 && tile + clusters < tiles) turn_pass(wg);
           const uint32_t bst = stage_base + stage * K::STAGE_BYTES;
 #pragma unroll
-          for (int ks = 0; ks < kKc / 16; ++ks) {
-            uint32_t(&av)[2][PLANES][4] = areg[ks & 1];
+          for (int gr = 0; gr < kKc / 16 / KSG; ++gr) {
+            uint32_t(&av)[KSG][2][PLANES][4] = areg[gr % 2];
 #pragma unroll
-            for (int mc = 0; mc < 2; ++mc)
+            for (int u = 0; u < KSG; ++u)
 #pragma unroll
-              for (int pl = 0; pl < PLANES; ++pl)
-                ldmatrix_x4(av[mc][pl], row_addr[mc] + pl * kWinPlaneBytes +
-                                            (((ks * 2 + khalf) ^ key[mc]) << 4));
-            if (tap == 8 && ks == kKc / 16 - 1) {  // this warp is done with the window
-              __syncwarp();
-              if (lane == 0) mbar_arrive(win_empty(wbuf));
-            }
-            const uint64_t d_hi = b_desc(bst + ks * 32);
+              for (int mc = 0; mc < 2; ++mc)
+#pragma unroll
+                for (int pl = 0; pl < PLANES; ++pl)
+                  ldmatrix_x4(av[u][mc][pl], row_addr[mc] + pl * kWinPlaneStride +
+                                                 ((((gr * KSG + u) * 2 + khalf) ^ key[mc]) << 4));
             fence_regs(acc[0]);
             fence_regs(acc[1]);
             wgmma_fence();
 #pragma unroll
-            for (int mc = 0; mc < 2; ++mc) {
-              wgmma_m64n128k16(acc[mc], av[mc][0], d_hi);
-              if (PASSES == 3) {
-                const uint64_t d_lo = b_desc(bst + kSliceBytes + ks * 32);
-                wgmma_m64n128k16(acc[mc], av[mc][1], d_hi);
-                wgmma_m64n128k16(acc[mc], av[mc][0], d_lo);
+            for (int u = 0; u < KSG; ++u) {
+              const int ks = gr * KSG + u;
+              const uint64_t d_hi = b_desc(bst + ks * 32);
+#pragma unroll
+              for (int mc = 0; mc < 2; ++mc) {
+                wgmma_m64n128k16(acc[mc], av[u][mc][0], d_hi);
+                if (PASSES == 3) {
+                  const uint64_t d_lo = b_desc(bst + kSliceBytes + ks * 32);
+                  wgmma_m64n128k16(acc[mc], av[u][mc][1], d_hi);
+                  wgmma_m64n128k16(acc[mc], av[u][mc][0], d_lo);
+                }
               }
             }
             wgmma_commit();
+            if (tap == 8 && gr == kKc / 16 / KSG - 1) {
+              // This warp is done with the window: its ldmatrix reads are
+              // complete once the wgmmas that take their registers have
+              // issued, and only then may the next window's TMA overwrite it.
+              __syncwarp();
+              if (lane == 0) mbar_arrive(win_empty(wbuf));
+            }
             fence_regs(acc[0]);
             fence_regs(acc[1]);
-            wgmma_wait<1>();  // every step before this one has retired
-            if (ks == 0 && prev >= 0) {  // so the previous tap's stage is free
-              if (threadIdx.x % 128 == 0) mbar_arrive(empty(prev));
+            wgmma_wait<1>();  // every group before this one has retired
+            if (gr == 0 && prev >= 0) {  // so the previous tap's stage is free
+              // lane c of warp 0 releases it in CTA c
+              if (threadIdx.x % 128 < kCluster) mbar_arrive_cluster(empty(prev), lane);
               prev = -1;
             }
           }
           prev = stage;
           if (++stage == STAGES) { stage = 0; sphase ^= 1; }
         }
-        if (++wbuf == 2) { wbuf = 0; wphase ^= 1; }
+        if (++wbuf == WINS) { wbuf = 0; wphase ^= 1; }
       }
       wgmma_wait<0>();
       fence_regs(acc[0]);
       fence_regs(acc[1]);
-      if (threadIdx.x % 128 == 0) mbar_arrive(empty(prev));
+      if (threadIdx.x % 128 < kCluster) mbar_arrive_cluster(empty(prev), lane);
       prev = -1;
+      // The other warpgroup's tile takes the next slots of both rings.
+      advance<WINS>(wbuf, wphase, KC);
+      advance<STAGES>(stage, sphase, SLOTS);
 
-      // Epilogue. Accumulator i of m64 chunk mc holds row g + 8 * ((i / 2) % 2)
-      // of warp wq's 16 and channel 8 * (i / 4) + 2 * q + i % 2; this thread's
-      // four rows r = 2 * mc + h are pixels (wg*8 + mc*4 + wq, g + 8h). Each
-      // row is two segments of 64 channels; the residual of segment s + 1 is
-      // loaded before segment s is stored (out may be the residual itself, so
-      // the compiler would not hoist the loads).
+      // Epilogue, beside the other warpgroup's mainloop. Accumulator i of m64
+      // chunk mc holds row g + 8 * ((i / 2) % 2) of warp wq's 16 and channel
+      // 8 * (i / 4) + 2 * q + i % 2; this thread's four rows r = 2 * mc + h are
+      // pixels (mc*4 + wq, g + 8h) of the CTA's 8 x 16, so a quad (the four
+      // lanes q of one g) holds a pixel's channels.
       const TileCoord tc = tile_coord<C>(tile, H, W);
       const int g = lane / 4, q = lane % 4;
-      const float* __restrict__ bias = a.bias + tc.nh * kN + 2 * q;
-      size_t pix[4];
+      size_t pix[4];  // element offset of this thread's pixels at channel 128 nh
       bool inside[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int iy = tc.ty0 + wg * 8 + (r / 2) * 4 + wq, ix = tc.tx0 + g + 8 * (r % 2);
+        const int iy = tc.ty0 + kRows * rank + (r / 2) * 4 + wq, ix = tc.tx0 + g + 8 * (r % 2);
         inside[r] = iy < H && ix < W;
-        pix[r] = ((static_cast<size_t>(tc.b) * H + iy) * W + ix) * C + tc.nh * kN + 2 * q;
+        pix[r] = ((static_cast<size_t>(tc.b) * H + iy) * W + ix) * C + tc.nh * kN;
       }
-      constexpr int SEG = kN / 16;  // n8 tiles per segment
-      float2 xr[2][SEG];
-      auto load_seg = [&](int s, float2(&d)[SEG]) {
-        if (EPI == EPI_RESIDUAL && inside[s / 2])
+      // bias + 4 j: the bias of channels 8 j + 2 q, + 1
+      const float2* __restrict__ bias = reinterpret_cast<const float2*>(a.bias + tc.nh * kN) + q;
+      if (EPI == EPI_RELU) {
+        // The bf16 planes of t: per row and four n8 tiles, a transpose inside
+        // the quad gives lane q tile 4 t + q's 8 channels, so each lane
+        // stores 16 contiguous bytes and a quad a pixel's 64: a quarter of
+        // the store instructions of 4-byte pairs, and whole sectors.
 #pragma unroll
-          for (int jj = 0; jj < SEG; ++jj)
-            d[jj] = load2(static_cast<const T*>(a.resid) + pix[s / 2] + 8 * (SEG * (s % 2) + jj));
-      };
-      load_seg(0, xr[0]);
+        for (int r = 0; r < 4; ++r) {
+          const int mc = r / 2, h = r % 2;
+          const bool keep = inside[r];
 #pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        if (s + 1 < 8) load_seg(s + 1, xr[(s + 1) % 2]);
-        const int r = s / 2, mc = r / 2, h = r % 2;
-        if (!inside[r]) continue;
+          for (int t = 0; t < 4; ++t) {
+            uint32_t hi[4], lo[4];
 #pragma unroll
-        for (int jj = 0; jj < SEG; ++jj) {
-          const int j = SEG * (s % 2) + jj;
-          const size_t off = pix[r] + 8 * j;
-          const float v0 = acc[mc][4 * j + 2 * h] + __ldg(bias + 8 * j);
-          const float v1 = acc[mc][4 * j + 2 * h + 1] + __ldg(bias + 8 * j + 1);
-          if (EPI == EPI_RELU) {
-            store_split<PASSES>(a.planes, plane_elems, off, fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-          } else {
+            for (int jj = 0; jj < 4; ++jj) {
+              const int j = 4 * t + jj;
+              const float2 bj = __ldg(bias + 4 * j);
+              const float v0 = fmaxf(acc[mc][4 * j + 2 * h] + bj.x, 0.f);
+              const float v1 = fmaxf(acc[mc][4 * j + 2 * h + 1] + bj.y, 0.f);
+              hi[jj] = bf16x2_bits(v0, v1);
+              if (PASSES == 3) lo[jj] = bf16x2_lo_bits(v0, v1, hi[jj]);
+            }
+            const size_t off = pix[r] + 8 * (4 * t + q);
+            quad_transpose(hi, q);
+            if (keep) store16(a.planes + off, hi);
+            if (PASSES == 3) {
+              quad_transpose(lo, q);
+              if (keep) store16(a.planes + plane_elems + off, lo);
+            }
+          }
+        }
+      } else {
+        // f32 (or bf16) pairs: a quad reads and writes a pixel's 8 channels,
+        // whole 32-byte sectors in f32. Each row is two segments of 64
+        // channels; the residual of segment s + 1 is loaded before segment s
+        // is stored (out may be the residual itself, so the compiler would
+        // not hoist the loads).
+        constexpr int SEG = kN / 16;  // n8 tiles per segment
+        float2 xr[2][SEG];
+        auto load_seg = [&](int s, float2(&d)[SEG]) {
+          if (inside[s / 2])
+#pragma unroll
+            for (int jj = 0; jj < SEG; ++jj)
+              d[jj] = load2(static_cast<const T*>(a.resid) + pix[s / 2] + 8 * (SEG * (s % 2) + jj) +
+                            2 * q);
+        };
+        load_seg(0, xr[0]);
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {
+          if (s + 1 < 8) load_seg(s + 1, xr[(s + 1) % 2]);
+          const int r = s / 2, mc = r / 2, h = r % 2;
+          const bool keep = inside[r];
+#pragma unroll
+          for (int jj = 0; jj < SEG; ++jj) {
+            const int j = SEG * (s % 2) + jj;
+            const size_t off = pix[r] + 8 * j + 2 * q;
+            const float2 bj = __ldg(bias + 4 * j);
+            const float v0 = acc[mc][4 * j + 2 * h] + bj.x;
+            const float v1 = acc[mc][4 * j + 2 * h + 1] + bj.y;
             const float o0 = xr[s % 2][jj].x + a.scale * v0, o1 = xr[s % 2][jj].y + a.scale * v1;
-            store2(static_cast<T*>(a.out) + off, o0, o1);
-            if (a.planes != nullptr) store_split<PASSES>(a.planes, plane_elems, off, o0, o1);
+            if (keep) {
+              store2(static_cast<T*>(a.out) + off, o0, o1);
+              if (a.planes != nullptr) store_split<PASSES>(a.planes, plane_elems, off, o0, o1);
+            }
           }
         }
       }
     }
   }
+  // No CTA leaves while its peer may still arrive on its barriers.
+  cluster_sync();
 }
 
 // --------------------------------------------------------------- launchers
 
+// The tensor map the window loads read: input planes [planes][B][H][W][C]
+// as 4-D (C, W, H, planes * B), a box of 64 channels x 18 x 10 pixels x 1,
+// the 128-byte swizzle, zero outside. -2 if the driver cannot encode it.
+int encode_window_map(CUtensorMap* map, const ConvArgs& a, int C, int planes) {
+  static const PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }();
+  if (encode == nullptr) return -2;
+  const cuuint64_t row = static_cast<cuuint64_t>(C) * 2;  // bytes per pixel
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(a.W),
+                              static_cast<cuuint64_t>(a.H),
+                              static_cast<cuuint64_t>(planes) * a.B};
+  const cuuint64_t strides[3] = {row, row * a.W, row * a.W * a.H};
+  const cuuint32_t box[4] = {kKc, kWin, kRows + 2, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                            const_cast<__nv_bfloat16*>(a.src), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -2;
+}
+
+// Launch one conv, or with a == nullptr only report in *clusters how many
+// clusters of this instantiation fit on the device at once (the grid).
 template <typename T, int C, int PASSES, int EPI>
-int launch_conv(const ConvArgs& a, cudaStream_t stream) {
+int launch_conv(const ConvArgs* a, cudaStream_t stream, int* clusters) {
   auto kernel = conv_kernel<T, C, PASSES, EPI>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  // Devices whose attribute is set. Mesh shards launch from several host
-  // threads at once; setting the attribute twice is harmless, a torn
-  // read-modify-write of the mask is not.
-  static std::atomic<unsigned long long> ready{0};
   if (dev >= 64) return -1;
-  if (!(ready.load(std::memory_order_acquire) & (1ull << dev))) {
+  // Co-resident clusters per device, 0 until set. Mesh shards launch from
+  // several host threads at once; setting the attribute and reading the
+  // count twice is harmless.
+  static std::atomic<int> resident[64];
+  int fit = resident[dev].load(std::memory_order_acquire);
+  if (fit == 0) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                Cfg<PASSES>::SMEM);
     if (err != cudaSuccess) return (int)err;
-    ready.fetch_or(1ull << dev, std::memory_order_release);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kCluster, 1, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = Cfg<PASSES>::SMEM;
+    err = cudaOccupancyMaxActiveClusters(&fit, reinterpret_cast<const void*>(kernel), &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (fit <= 0) return -1;
+    resident[dev].store(fit, std::memory_order_release);
   }
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = static_cast<long long>(a.B) * ((a.H + kTile - 1) / kTile) *
-                          ((a.W + kTile - 1) / kTile) * (C / kN);
+  if (clusters != nullptr) *clusters = fit;
+  if (a == nullptr) return 0;
+  const long long tiles = static_cast<long long>(a->B) * ((a->H + kTile - 1) / kTile) *
+                          ((a->W + kTile - 1) / kTile) * (C / kN);
   if (tiles <= 0 || tiles > (1LL << 30)) return -1;
-  const int grid = tiles < sms ? static_cast<int>(tiles) : sms;
-  kernel<<<grid, kThreads, Cfg<PASSES>::SMEM, stream>>>(a, static_cast<int>(tiles));
+  CUtensorMap win_map;
+  const int bad = encode_window_map(&win_map, *a, C, Cfg<PASSES>::PLANES);
+  if (bad != 0) return bad;
+  const int grid = kCluster * (tiles < fit ? static_cast<int>(tiles) : fit);
+  kernel<<<grid, kThreads, Cfg<PASSES>::SMEM, stream>>>(*a, win_map, static_cast<int>(tiles));
   return (int)cudaGetLastError();
 }
 
 template <int C>
-int dispatch(const ConvArgs& a, int passes, int dtype, int epilogue, cudaStream_t s) {
+int dispatch(const ConvArgs* a, int passes, int dtype, int epilogue, cudaStream_t s,
+             int* clusters) {
   if (epilogue == EPI_RELU) {
-    if (passes == 1) return launch_conv<float, C, 1, EPI_RELU>(a, s);
-    if (passes == 3) return launch_conv<float, C, 3, EPI_RELU>(a, s);
+    if (passes == 1) return launch_conv<float, C, 1, EPI_RELU>(a, s, clusters);
+    if (passes == 3) return launch_conv<float, C, 3, EPI_RELU>(a, s, clusters);
     return -1;
   }
   if (epilogue != EPI_RESIDUAL) return -1;
-  if (dtype == 0 && passes == 1) return launch_conv<float, C, 1, EPI_RESIDUAL>(a, s);
-  if (dtype == 0 && passes == 3) return launch_conv<float, C, 3, EPI_RESIDUAL>(a, s);
-  if (dtype == 1 && passes == 1) return launch_conv<__nv_bfloat16, C, 1, EPI_RESIDUAL>(a, s);
+  if (dtype == 0 && passes == 1) return launch_conv<float, C, 1, EPI_RESIDUAL>(a, s, clusters);
+  if (dtype == 0 && passes == 3) return launch_conv<float, C, 3, EPI_RESIDUAL>(a, s, clusters);
+  if (dtype == 1 && passes == 1)
+    return launch_conv<__nv_bfloat16, C, 1, EPI_RESIDUAL>(a, s, clusters);
   return -1;
+}
+
+int dispatch_c(const ConvArgs* a, int C, int passes, int dtype, int epilogue, cudaStream_t s,
+               int* clusters) {
+  switch (C) {
+    case 128: return dispatch<128>(a, passes, dtype, epilogue, s, clusters);
+    case 256: return dispatch<256>(a, passes, dtype, epilogue, s, clusters);
+    default: return -1;
+  }
 }
 
 }  // namespace
 
 // C interface, bound with ctypes. Each returns 0, a cudaError_t from the
-// launch, or -1 for arguments the kernels do not take.
+// launch, -1 for arguments the kernels do not take, or -2 if the driver
+// cannot encode the window loads' tensor map.
 
 // bf16 planes [passes == 3 ? 2 : 1][n] of f32 x[n]; n a multiple of 4.
 extern "C" int dsen2_split_planes(const void* x, void* planes, long long n, int passes,
@@ -619,12 +857,20 @@ extern "C" int dsen2_conv3x3(const void* src, const void* w, const float* bias,
   a.W = W;
   a.scale = scale;
   if (B <= 0 || H <= 0 || W <= 0) return -1;
+  // 16-byte vector accesses and the tensor map need 16-byte aligned tensors.
+  const void* tensors[] = {src, w, bias, resid, out, planes};
+  for (const void* p : tensors)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return -1;
   if (epilogue == EPI_RELU && planes == nullptr) return -1;
   if (epilogue == EPI_RESIDUAL && (resid == nullptr || out == nullptr)) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 128: return dispatch<128>(a, passes, dtype, epilogue, s);
-    case 256: return dispatch<256>(a, passes, dtype, epilogue, s);
-    default: return -1;
-  }
+  return dispatch_c(&a, C, passes, dtype, epilogue, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The clusters of two CTAs that the conv of these arguments launches at
+// most (fewer when the image has fewer 16 x 16 x 128 tiles), or -1 / a
+// cudaError_t. Reads nothing back from the device.
+extern "C" int dsen2_conv3x3_clusters(int C, int passes, int dtype, int epilogue) {
+  int clusters = 0;
+  const int err = dispatch_c(nullptr, C, passes, dtype, epilogue, nullptr, &clusters);
+  return err != 0 ? (err > 0 ? -err : err) : clusters;
 }

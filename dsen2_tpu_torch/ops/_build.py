@@ -62,6 +62,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dsen2_split_planes.restype = i
     lib.dsen2_conv3x3.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, i, i, p]
     lib.dsen2_conv3x3.restype = i
+    lib.dsen2_conv3x3_clusters.argtypes = [i, i, i, i]
+    lib.dsen2_conv3x3_clusters.restype = i
     return lib
 
 

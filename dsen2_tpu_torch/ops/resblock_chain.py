@@ -30,11 +30,16 @@ from dsen2_tpu_torch.utils import profiling
 __all__ = [
     "fused_resblock_chain", "resblock_chain_plain", "resblock_plain",
     "pack_weights", "split_planes", "KERNEL_CHANNELS", "count_launches",
+    "schedule_counts", "count_tiles",
 ]
 
 # Feature counts the CUDA kernel is instantiated for (csrc/resblock_chain.cu,
 # dispatch<C>): DSen2's 128 and VDSen2's 256.
 KERNEL_CHANNELS = (128, 256)
+# The conv kernel's schedule (csrc/resblock_chain.cu, header): a cluster of
+# two CTAs takes a 16 x 16 pixel x 128 channel tile; each CTA its 8 x 16 half.
+CLUSTER_TILE = 16
+CLUSTER_CTAS = 2
 
 
 def _conv(x: torch.Tensor, w: torch.Tensor, passes: int) -> torch.Tensor:
@@ -135,6 +140,38 @@ def count_launches(wrapper, n: int) -> None:
         wrapper.launches += n
 
 
+def schedule_counts(b: int, h: int, w: int, c: int, clusters: int) -> tuple[int, int]:
+    """(tiles, overlapped) of one conv launch on [b, h, w, c] with `clusters`
+    co-resident clusters. A tile is what one warpgroup owns: 8 x 16 pixels x
+    128 channels, one CTA's half of a cluster tile. The launch runs
+    n = min(clusters, T) clusters over the T cluster tiles; cluster i takes
+    tiles i, i + n, ..., and in each of its two CTAs the warpgroups take them
+    in turn, so every tile but a CTA's last has its epilogue beside the other
+    warpgroup's mainloop: overlapped = 2 (T - n)."""
+    steps = b * -(-h // CLUSTER_TILE) * -(-w // CLUSTER_TILE) * (c // 128)
+    n = min(clusters, steps)
+    return CLUSTER_CTAS * steps, CLUSTER_CTAS * (steps - n)
+
+
+def count_tiles(lib, shape, passes: int, f32: bool, nblocks: int) -> None:
+    """Add the tiles of K blocks' convs (conv1 and conv2 each) on x of
+    `shape` to the counters b1.tiles and b1.tiles_overlapped, from the launch
+    geometry: the library reports how many clusters of each instantiation fit
+    on the current device (it reads that once per device and instantiation;
+    nothing is read back from the device). Raises if none fits."""
+    bsz, h, w, c = shape
+    tiles = overlapped = 0
+    for epilogue, dtype in ((0, 0), (1, 0 if f32 else 1)):
+        clusters = lib.dsen2_conv3x3_clusters(c, passes, dtype, epilogue)
+        if clusters <= 0:
+            raise RuntimeError(f"conv{epilogue + 1}: no cluster fits the device (error {clusters})")
+        t, o = schedule_counts(bsz, h, w, c, clusters)
+        tiles += t
+        overlapped += o
+    profiling.count("b1.tiles", nblocks * tiles)
+    profiling.count("b1.tiles_overlapped", nblocks * overlapped)
+
+
 def _check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed (error {err})")
@@ -145,7 +182,8 @@ def launch_blocks(x, w1, b1, w2, b2, scale: float, passes: int) -> torch.Tensor:
     Packs all K blocks' weights in one call, then launches, per block, the
     conv kernel twice (conv1 with the ReLU epilogue, conv2 with the residual
     one). f32 x first goes through split_kernel once; each conv2 but the last
-    writes the planes the next block's conv1 reads. Returns a new tensor;
+    writes the planes the next block's conv1 reads. Adds the launches' tiles
+    to b1.tiles and b1.tiles_overlapped (`count_tiles`). Returns a new tensor;
     raises if the kernels cannot take the arguments or a launch fails."""
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {x.device}")
@@ -191,6 +229,7 @@ def launch_blocks(x, w1, b1, w2, b2, scale: float, passes: int) -> torch.Tensor:
             resid = out  # blocks after the first update out in place
             if not f32:
                 planes = out
+        count_tiles(lib, x.shape, passes, f32, w1.shape[0])
     return out
 
 

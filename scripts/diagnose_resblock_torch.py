@@ -12,11 +12,17 @@ by CUDA events over 10 calls after one warm-up:
 
 - base:            the kernel as committed;
 - no_epilogue:     the epilogue stores nothing (its stores sit behind a
-                   condition no launch meets, so the wgmmas still run);
-- no_weight_copy:  no weight slice is copied (the stage's barrier is
-                   released at once; the products read stale shared memory);
-- no_window_copy:  no activation window is copied;
+                   condition no launch meets, so the wgmmas still run; the
+                   warpgroups still take turns);
+- no_weight_copy:  no weight slice is copied (each CTA's stage barrier is
+                   released at once, the pair's shared release still
+                   paces the ring; the products read stale shared memory);
+- no_window_copy:  no activation window is loaded (the window barrier is
+                   released at once);
 - compute_only:    all three taken out: the wgmma issue loop alone.
+
+The same five variants ran on the earlier schedule (both warpgroups on one tile,
+the epilogue at once): run this script of that tree to compare.
 
 The ablated kernels compute wrong numbers; only their times mean anything.
 Prints the card's name and power limit, then one JSON line per variant.
@@ -38,13 +44,17 @@ ITERS = 10
 
 # The stores stay behind a condition no launch meets, so that the
 # accumulators stay live: with no reader, ptxas deletes the wgmmas.
-NO_EPILOGUE = [("        if (!inside[r]) continue;", "        if (a.scale != -12345.f) continue;")]
-NO_WEIGHTS = [("        mbar_expect_tx(full(stage), K::STAGE_BYTES);",
-               "        mbar_arrive(full(stage));"),
-              ("        bulk_copy(stage_base + stage * K::STAGE_BYTES, src, K::STAGE_BYTES, full(stage));",
-               "        (void)src;")]
-NO_WINDOW = [("        cp_async16(dst0 + pl * kWinPlaneBytes + wp * kRowBytes + ((g ^ (wp & 7)) << 4), src,\n"
-              "                   valid);", "        (void)src;")]
+NO_EPILOGUE = [("          const bool keep = inside[r];",
+                "          const bool keep = a.scale == -12345.f;")]
+NO_WEIGHTS = [("          mbar_expect_tx(full(stage), K::STAGE_BYTES);",
+               "          mbar_arrive(full(stage));"),
+              ("          bulk_copy_multicast(stage_base + stage * K::STAGE_BYTES + rank * PART, src, PART,\n"
+               "                              full(stage), (1u << kCluster) - 1);",
+               "          (void)src;")]
+NO_WINDOW = [("          mbar_expect_tx(win_full(wbuf), PLANES * kWinPlaneBytes);\n"
+              "          for (int pl = 0; pl < PLANES; ++pl)\n",
+              "          mbar_arrive(win_full(wbuf));\n"
+              "          for (int pl = 0; pl < 0; ++pl)\n")]
 VARIANTS = {
     "base": [],
     "no_epilogue": NO_EPILOGUE,

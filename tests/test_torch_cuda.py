@@ -67,24 +67,147 @@ def _check_chain(x, w1, b1, w2, b2, passes):
 
 @pytest.mark.parametrize("passes", [3, 1])
 def test_chain_kernel_tile_count_not_a_multiple_of_the_sms(dev, passes):
-    """The persistent grid has one CTA per SM; some CTAs take one tile more."""
+    """The persistent grid has one cluster of two CTAs per pair of SMs that
+    fits; some clusters take one tile more."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clusters = _clusters(128, passes, 0, 1)
+    assert 0 < clusters <= sms // 2
     per_image = 4 * 5  # 16 x 16 tiles of a 64 x 80 image
     b = sms // per_image + 1
-    assert (b * per_image) % sms and b * per_image > sms
+    assert (b * per_image) % clusters and b * per_image > clusters
     _check_chain(*_block_args(dev, (b, 64, 80, 128), 2, torch.float32), passes)
+
+
+def _clusters(c, passes, dtype, epilogue):
+    from dsen2_tpu_torch.ops._build import load_library
+
+    return load_library().dsen2_conv3x3_clusters(c, passes, dtype, epilogue)
+
+
+def _check_and_rerun(run, plain, tol):
+    """The kernel against its plain version at `tol` of max|plain|, then
+    once more: the second run's bits equal the first's."""
+    got = run()
+    torch.cuda.synchronize()
+    want = plain()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+    again = run()
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def _schedule_shape(case, c, passes):
+    """Shapes that put the conv kernel's ping-pong schedule at its edges: one
+    16-row image whose width gives the number of 16 x 16 x 128 tiles."""
+    n = _clusters(c, passes, 0, 1)
+
+    def width(tiles):  # a 16-pixel column gives c / 128 tiles
+        return 16 * -(-tiles // (c // 128))
+
+    return {
+        # one pixel tile: warpgroup 1 of each CTA has no tile (C = 256: one
+        # cluster each for the two channel halves)
+        "one_tile": (1, 16, 16, c),
+        # 8 rows: CTA 1's half of every tile lies outside the image
+        "cta_half_outside": (1, 8, 40, c),
+        # n + 1 tiles (n + 2 at C = 256): one or two clusters' warpgroup 1
+        # has a tile, the others' none
+        "clusters_plus_one": (1, 16, width(n + 1), c),
+        # 3 n + 1 tiles (3 n + 2): the warpgroups of one or two clusters take
+        # 2 + 2 tiles, of the others 2 + 1
+        "three_waves_plus_one": (1, 16, width(3 * n + 1), c),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["one_tile", "cta_half_outside", "clusters_plus_one",
+                                  "three_waves_plus_one"])
+@pytest.mark.parametrize("c", [128, 256])
+@pytest.mark.parametrize("dtype,passes", [(torch.float32, 3), (torch.float32, 1),
+                                          (torch.bfloat16, 1)])
+def test_schedule_edges_match_plain_and_rerun_bit_equal(dev, case, c, dtype, passes):
+    shape = _schedule_shape(case, c, passes)
+    x, w1, b1, w2, b2 = _block_args(dev, shape, 2, dtype, seed=6)
+    _check_and_rerun(
+        lambda: resblock_chain.fused_resblock_chain(x, w1, b1, w2, b2, passes=passes),
+        lambda: resblock_chain.resblock_chain_plain(x, w1, b1, w2, b2, passes=passes),
+        TOL[(dtype, passes)])
 
 
 @pytest.mark.parametrize("dtype,passes", [(torch.float32, 3), (torch.float32, 1),
                                           (torch.bfloat16, 1)])
-def test_chain_kernel_image_smaller_than_one_tile(dev, dtype, passes):
-    _check_chain(*_block_args(dev, (1, 5, 11, 128), 2, dtype, seed=2), passes)
+def test_schedule_out_aliases_the_residual(dev, dtype, passes):
+    """Blocks after the first read their residual from `out` and write `out`
+    in place (bf16: also their planes): three blocks."""
+    x, w1, b1, w2, b2 = _block_args(dev, (2, 40, 72, 128), 3, dtype, seed=9)
+    _check_and_rerun(
+        lambda: resblock_chain.fused_resblock_chain(x, w1, b1, w2, b2, passes=passes),
+        lambda: resblock_chain.resblock_chain_plain(x, w1, b1, w2, b2, passes=passes),
+        TOL[(dtype, passes)])
 
 
+def _seeded_block_args(shape, k, seed):
+    """Inputs from numpy's generator, the same bits on any machine."""
+    rng = np.random.default_rng(seed)
+    c = shape[-1]
+    ws = np.float32((9 * c) ** -0.5)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    w1 = rng.standard_normal((k, 3, 3, c, c), dtype=np.float32) * ws
+    w2 = rng.standard_normal((k, 3, 3, c, c), dtype=np.float32) * ws
+    b1 = rng.standard_normal((k, c), dtype=np.float32) * np.float32(0.1)
+    b2 = rng.standard_normal((k, c), dtype=np.float32) * np.float32(0.1)
+    return x, w1, b1, w2, b2
+
+
+# SHA-256 of B1's float32 output bytes on _seeded_block_args(shape, 2, 11),
+# as the earlier schedule of the conv kernel (both warpgroups on one 16 x 16
+# tile, the epilogue after the mainloop) computed them on an H100: the
+# ping-pong schedule sums the same products in the same order.
+SCHEDULE_SHA256 = {
+    ((2, 40, 56, 128), 3): "19a7f2435db1b286cacd0c206234a7663568c5d4cb7c8f520c36164933f7626d",
+    ((2, 40, 56, 128), 1): "8f3fa35820a2b251690ca7d4b8c736481f215764a72213343a91f8967303a513",
+    ((1, 24, 40, 256), 3): "6c4089134487287cb325203bb8b6867ec8dcb2adb47d50653eae4dd2dc270971",
+    ((1, 24, 40, 256), 1): "08ac3e658a200a339847c113a646f777bc735132537ee53f230bdb21a482a367",
+}
+
+
+def chain_output_sha256(chain_mod, dev, shape, passes) -> str:
+    import hashlib
+
+    args = [torch.from_numpy(a).to(dev) for a in _seeded_block_args(shape, 2, 11)]
+    got = chain_mod.fused_resblock_chain(*args, passes=passes)
+    return hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("shape,passes", list(SCHEDULE_SHA256))
+def test_chain_kernel_bits_equal_the_previous_schedule(dev, shape, passes):
+    got = chain_output_sha256(resblock_chain, dev, shape, passes)
+    assert got == SCHEDULE_SHA256[(shape, passes)]
+
+
+@pytest.mark.parametrize("shape", [(1, 5, 11, 128), (1, 7, 3, 256)])
+@pytest.mark.parametrize("dtype,passes", [(torch.float32, 3), (torch.float32, 1),
+                                          (torch.bfloat16, 1)])
+def test_chain_kernel_image_smaller_than_one_tile(dev, shape, dtype, passes):
+    """One tile: warpgroup 1 of each CTA idles, CTA 1's half is outside."""
+    x, w1, b1, w2, b2 = _block_args(dev, shape, 2, dtype, seed=2)
+    _check_and_rerun(
+        lambda: resblock_chain.fused_resblock_chain(x, w1, b1, w2, b2, passes=passes),
+        lambda: resblock_chain.resblock_chain_plain(x, w1, b1, w2, b2, passes=passes),
+        TOL[(dtype, passes)])
+
+
+@pytest.mark.parametrize("shape,k", [((6, 48, 64, 256), 2), ((12, 64, 256, 256), 1)])
 @pytest.mark.parametrize("passes", [3, 1])
-def test_chain_kernel_c256_more_tiles_than_sms(dev, passes):
-    """VDSen2 width: two 128-channel halves per pixel tile, 144 tiles."""
-    _check_chain(*_block_args(dev, (6, 48, 64, 256), 2, torch.float32, seed=3), passes)
+def test_chain_kernel_c256_more_tiles_than_sms(dev, shape, k, passes):
+    """VDSen2 width: two 128-channel halves per pixel tile; 144 tiles (2 or
+    3 per cluster) and 1,536 (23 or 24: many turns of the warpgroups)."""
+    x, w1, b1, w2, b2 = _block_args(dev, shape, k, torch.float32, seed=3)
+    _check_and_rerun(
+        lambda: resblock_chain.fused_resblock_chain(x, w1, b1, w2, b2, passes=passes),
+        lambda: resblock_chain.resblock_chain_plain(x, w1, b1, w2, b2, passes=passes),
+        TOL[(torch.float32, passes)])
 
 
 @pytest.mark.parametrize("passes", [3, 1])
@@ -99,11 +222,10 @@ def test_chain_kernel_is_deterministic(dev, passes):
 def test_fused_resblock_main_path_shape(dev):
     """B2 at the shape the patch-132 route gives it: 132 = 8 * 16 + 4."""
     x, w1, b1, w2, b2 = _block_args(dev, (64, 132, 132, 128), 1, torch.float32, seed=5)
-    got = resblock.fused_resblock(x, w1[0], b1[0], w2[0], b2[0], tile_rows=4)
-    torch.cuda.synchronize()
-    want = resblock.fused_resblock_plain(x, w1[0], b1[0], w2[0], b2[0])
-    err = (got - want).abs().max().item()
-    assert err <= TOL[(torch.float32, 1)] * want.abs().max().item(), err
+    _check_and_rerun(
+        lambda: resblock.fused_resblock(x, w1[0], b1[0], w2[0], b2[0], tile_rows=4),
+        lambda: resblock.fused_resblock_plain(x, w1[0], b1[0], w2[0], b2[0]),
+        TOL[(torch.float32, 1)])
 
 
 def test_zero_weights_identity(dev):

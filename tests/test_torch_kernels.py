@@ -139,3 +139,72 @@ def test_plain_version_masks_like_same_padding(rng):
     ones = np.pad(np.ones((h, w)), 1)
     taps = sum(ones[dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3))
     np.testing.assert_array_equal(got.numpy(), taps)
+
+
+def _walk_schedule(b, h, w, c, clusters):
+    """The conv kernel's schedule walked tile by tile (csrc/resblock_chain.cu):
+    cluster i of n takes the 16 x 16 x 128 tiles i, i + n, ...; each of its
+    two CTAs takes its 8-row half of each, and the CTA's two warpgroups take
+    them in turn. A tile's epilogue overlaps when the CTA has a next tile,
+    whose mainloop the other warpgroup runs beside it."""
+    steps = b * ((h + 15) // 16) * ((w + 15) // 16) * (c // 128)
+    n = min(clusters, steps)
+    tiles = overlapped = 0
+    for cluster in range(n):
+        mine = list(range(cluster, steps, n))
+        for _cta in range(2):
+            busy = {0: 0, 1: 0}
+            for j in range(len(mine)):
+                busy[j % 2] += 1
+                tiles += 1
+                overlapped += j + 1 < len(mine)
+            assert busy[0] - busy[1] in (0, 1)
+    return tiles, overlapped
+
+
+class _ClusterLib:
+    """Stands in for the kernels' library: reports `clusters` co-resident
+    clusters for every instantiation and records what was asked."""
+
+    def __init__(self, clusters):
+        self.clusters = clusters
+        self.asked = []
+
+    def dsen2_conv3x3_clusters(self, c, passes, dtype, epilogue):
+        self.asked.append((c, passes, dtype, epilogue))
+        return self.clusters
+
+
+@pytest.mark.parametrize("shape,clusters", [
+    ((1, 16, 16, 128), 66),      # one tile: one warpgroup of each CTA works, nothing overlaps
+    ((1, 5, 11, 128), 66),       # an image smaller than one tile
+    ((3, 40, 56, 128), 66),      # 36 tiles, fewer than the clusters
+    ((1, 16, 16 * 67, 128), 66), # one cluster takes a second tile
+    ((64, 128, 128, 128), 66),   # the tile cell's batch: 62-63 tiles a cluster
+    ((6, 48, 64, 256), 66),      # C = 256: two channel halves per pixel tile
+    ((16, 64, 64, 256), 61),     # C = 256, an odd number of clusters
+])
+@pytest.mark.parametrize("nblocks,f32", [(1, True), (2, True), (6, False)])
+def test_tile_counters_follow_the_launch_geometry(shape, clusters, nblocks, f32):
+    """b1.tiles and b1.tiles_overlapped add, for K blocks, both convs' tiles
+    as the kernel's schedule lays them out, read from the geometry alone."""
+    from dsen2_tpu_torch.utils.profiling import counters
+
+    b, h, w, c = shape
+    want = _walk_schedule(b, h, w, c, clusters)
+    assert resblock_chain.schedule_counts(b, h, w, c, clusters) == want
+    lib = _ClusterLib(clusters)
+    passes = 3 if f32 else 1
+    before = counters()
+    resblock_chain.count_tiles(lib, shape, passes, f32, nblocks)
+    after = counters()
+    got = tuple(after[k] - before.get(k, 0) for k in ("b1.tiles", "b1.tiles_overlapped"))
+    assert got == (2 * nblocks * want[0], 2 * nblocks * want[1])
+    assert lib.asked == [(c, passes, 0, 0), (c, passes, 0 if f32 else 1, 1)]
+    if shape == (64, 128, 128, 128):
+        assert want[1] / want[0] > 0.98
+
+
+def test_tile_counters_raise_when_no_cluster_fits():
+    with pytest.raises(RuntimeError, match="no cluster fits"):
+        resblock_chain.count_tiles(_ClusterLib(0), (1, 16, 16, 128), 3, True, 1)
