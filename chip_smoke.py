@@ -59,9 +59,17 @@ Phases, each printing its lines and its seconds:
    step, and a staged fit(mesh=) at "default" whose loss falls, neither
    launching a kernel; s2_supres --mesh 2 without a device must raise the
    too-few-devices error on a one-GPU machine. B1 and B2 must launch;
-8. one {"kernels": [...]} JSON line, launches counted over phases 3, 4, 6
-   and 7;
-9. the card's name and power limit, then {"ok": true, "device": {...}}.
+8. RCAN (ops/channel_attention.py): the conv kernel at C = 64 with its
+   ReLU and residual epilogues, the pooling epilogue and the gate kernel,
+   each against its plain version at the rcan.roi cell's batch shape
+   [64, 128, 128, 64] in both classes, with times, bounds and shares (bytes
+   at each launch's own dtypes); RCAN's body at published widths (10 x 20 x
+   64) on that shape through rcan_body against rcan_body_plain at "high"
+   and "default"; its launches, by the program's counters, must follow its
+   groups and blocks;
+9. one {"kernels": [...]} JSON line, B1's and B2's launches counted over
+   phases 3, 4, 6 and 7, RCAN's three kernels' over phase 8's body runs;
+10. the card's name and power limit, then {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line. Without a CUDA device,
 or without the dsen2_tpu_torch package beside it, the script fails.
@@ -153,8 +161,8 @@ def bound_ms(shape, k, passes, itemsize):
     b, h, w, c = shape
     flop = 2 * b * h * w * 9 * c * c * 2 * k * passes
     nbytes = 2 * b * h * w * c * itemsize + k * 2 * (9 * c * c + c) * 4
-    t_ops, t_bytes = flop / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flop, nbytes
+    ms, by = roofline_ms(flop, nbytes)
+    return ms, by, flop, nbytes
 
 
 # Phase 2's cases: (kernel, shape, K, dtype, passes). B1 at the main path's
@@ -249,6 +257,208 @@ def phase_kernels(torch, chain_mod, block_mod):
         del x, w1, w2, b1, b2
         torch.cuda.empty_cache()
     return results
+
+
+# RCAN's kernels (ops/channel_attention.py) at the rcan.roi cell's batch: 64
+# patches of 128 x 128 at RCAN's 64 features.
+RCAN_SHAPE = (64, 128, 128, 64)
+RCAN_CASES = ("conv1", "conv2_pool", "gate", "group_conv")
+
+
+def rcan_work(case, shape, passes, squeeze=4):
+    """(flop, bytes) of one launch of an RCAN kernel on `shape`: its
+    products (x3 at bf16x3) and what it reads and writes once each at its
+    own dtype: bf16 planes (2 at bf16x3, 1 at one pass), f32 x, y, residual
+    and out, the per-warp sums, the packed bf16 weights and the f32 biases.
+    conv1 (ReLU epilogue): planes in, planes of t out. conv2_pool: planes
+    in, y and the sums out. gate: x, y and the sums in, out and its planes
+    out. group_conv (residual epilogue): planes and the residual in, out
+    and its planes out."""
+    from dsen2_tpu_torch.ops.channel_attention import pool_rows
+
+    b, h, w, c = shape
+    n, planes = b * h * w * c, 2 if passes == 3 else 1
+    plane_bytes, sums = 2 * planes * n, b * pool_rows(h, w) * c * 4
+    conv_flop = 2 * b * h * w * 9 * c * c * passes
+    weights = 9 * c * c * 2 * planes + c * 4
+    return {
+        "conv1": (conv_flop, 2 * plane_bytes + weights),
+        "conv2_pool": (conv_flop, plane_bytes + 4 * n + sums + weights),
+        "gate": (0, 12 * n + plane_bytes + sums + (2 * c * squeeze + squeeze + c) * 4),
+        "group_conv": (conv_flop, 2 * plane_bytes + 8 * n + weights),
+    }[case]
+
+
+def roofline_ms(flop, nbytes):
+    """(ms, bound_by): operations at the bf16 tensor peak against bytes at
+    the HBM rate, whichever takes longer."""
+    t_ops, t_bytes = flop / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rcan_launches(torch, lib, x, wt, bias, gate_w, passes):
+    """Each RCAN kernel as rcan_body launches it, on x [B, H, W, 64], one
+    conv's HWIO weights `wt` and `bias`, and the attention's (wd, bd, wu,
+    bu): {case: call} and the buffers the calls write. conv1 reads x's
+    planes; conv2_pool reads conv1's t; the gate reads x, conv2's y and sums;
+    group_conv reads x's planes with x as the residual."""
+    from dsen2_tpu_torch.ops import channel_attention as ca
+    from dsen2_tpu_torch.ops import resblock_chain as rc
+
+    b, h, w, c = x.shape
+    wd, bd, wu, bu = gate_w
+    planes = rc.split_planes(x, passes).contiguous()
+    packed = rc.pack_weights(wt, passes)
+    buf = dict(t=torch.empty_like(planes), y=torch.empty_like(x),
+               pool=torch.empty((b, ca.pool_rows(h, w), c), device=x.device),
+               gate_out=torch.empty_like(x), gate_planes=torch.empty_like(planes),
+               conv_out=torch.empty_like(x), conv_planes=torch.empty_like(planes))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def conv1():
+        rc._check(lib.dsen2_conv3x3(planes.data_ptr(), packed.data_ptr(), bias.data_ptr(), None,
+                                    None, buf["t"].data_ptr(), b, h, w, c, 1.0, passes, 0, 0,
+                                    stream), "conv1")
+
+    def conv2_pool():
+        rc._check(lib.dsen2_conv3x3_pool(buf["t"].data_ptr(), packed.data_ptr(),
+                                         bias.data_ptr(), buf["y"].data_ptr(),
+                                         buf["pool"].data_ptr(), b, h, w, c, passes, stream),
+                  "conv2")
+
+    def gate():
+        rc._check(lib.dsen2_ca_gate(x.data_ptr(), buf["y"].data_ptr(), buf["pool"].data_ptr(),
+                                    wd.data_ptr(), bd.data_ptr(), wu.data_ptr(), bu.data_ptr(),
+                                    buf["gate_out"].data_ptr(), buf["gate_planes"].data_ptr(),
+                                    b, h, w, c, wd.shape[-1], passes, stream), "gate")
+
+    def group_conv():
+        rc._check(lib.dsen2_conv3x3(planes.data_ptr(), packed.data_ptr(), bias.data_ptr(),
+                                    x.data_ptr(), buf["conv_out"].data_ptr(),
+                                    buf["conv_planes"].data_ptr(), b, h, w, c, 1.0, passes, 0,
+                                    1, stream), "group conv")
+
+    return dict(conv1=conv1, conv2_pool=conv2_pool, gate=gate, group_conv=group_conv), buf
+
+
+def phase_rcan(torch):
+    """RCAN's kernels on the card: the conv kernel at C = 64 with its ReLU
+    and residual epilogues, the pooling epilogue and ca_gate_kernel, each
+    against its plain version at RCAN_SHAPE in both classes, with times,
+    bounds and shares; then RCAN's body at published widths (10 groups x 20
+    RCABs x 64 features) on RCAN_SHAPE through rcan_body against
+    rcan_body_plain, at "high" and "default", the launches counted by the
+    program's counters from just before these runs. Returns ({(case,
+    precision): result}, launches of each kernel)."""
+    from dsen2_tpu_torch.models import rcan
+    from dsen2_tpu_torch.ops import channel_attention as ca
+    from dsen2_tpu_torch.ops import resblock_chain as rc
+    from dsen2_tpu_torch.ops._build import load_library
+    from dsen2_tpu_torch.utils import profiling
+    from dsen2_tpu_torch.weights import params_to_torch
+
+    F = torch.nn.functional
+    lib = load_library()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, h, w, c = RCAN_SHAPE
+    x = torch.randn(RCAN_SHAPE, generator=gen, device=dev)
+    wt = torch.randn((3, 3, c, c), generator=gen, device=dev) * (9 * c) ** -0.5
+    bias = torch.randn(c, generator=gen, device=dev) * 0.1
+    gate_w = (torch.randn((c, 4), generator=gen, device=dev) * 0.2,
+              torch.randn(4, generator=gen, device=dev),
+              torch.randn((4, c), generator=gen, device=dev) * 0.5,
+              torch.randn(c, generator=gen, device=dev))
+    xb, wb = x.permute(0, 3, 1, 2).bfloat16(), wt.permute(3, 2, 0, 1).bfloat16()
+    results = {}
+    for precision, passes in (("high", 3), ("default", 1)):
+        calls, buf = rcan_launches(torch, lib, x, wt, bias, gate_w, passes)
+        tol = KERNEL_TOL[("float32", passes)]
+        for case in RCAN_CASES:
+            calls[case]()
+            torch.cuda.synchronize()
+            # The plain version of each case on the kernel's own inputs: y
+            # from the kernel's t, the gate from the kernel's y and sums.
+            t = buf["t"].float().sum(0)
+            plain = {
+                "conv1": lambda: torch.relu(rc._conv(x, wt, passes) + bias),
+                "conv2_pool": lambda: rc._conv(t, wt, passes) + bias,
+                "gate": lambda: ca._gate_from_pool(x, buf["y"], buf["pool"], *gate_w),
+                "group_conv": lambda: x + (rc._conv(x, wt, passes) + bias),
+            }[case]
+            got = {"conv1": t, "conv2_pool": buf["y"], "gate": buf["gate_out"],
+                   "group_conv": buf["conv_out"]}[case]
+            want = plain()
+            err = (got - want).abs().max().item()
+            limit = (1e-6 if case == "gate" else tol) * want.abs().max().item()
+            ok = bool(np.isfinite(err)) and err <= limit
+            if case == "conv2_pool":
+                sums = ca.pool_sums_plain(buf["y"])
+                pool_err = (buf["pool"] - sums).abs().max().item()
+                ok = ok and pool_err <= 1e-5 * sums.abs().max().item()
+                err_text = f"max_abs_err={err:.3e}, sums {pool_err:.3e}"
+            else:
+                err_text = f"max_abs_err={err:.3e}"
+            ms = time_ms(torch, calls[case], iters=20)
+            plain_ms = time_ms(torch, plain, iters=1)
+            if case == "gate":
+                library_ms, lib_class = plain_ms, "the plain gate's PyTorch ops"
+            else:
+                library_ms = time_ms(torch, lambda: F.conv2d(xb, wb, None, padding=1), iters=20)
+                lib_class = "cuDNN bf16 conv"
+            flop, nbytes = rcan_work(case, RCAN_SHAPE, passes)
+            bms, by = roofline_ms(flop, nbytes)
+            print(f"rcan {case} {list(RCAN_SHAPE)} {precision}: {err_text} (limit "
+                  f"{limit:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+                  f"{library_ms:.4f} ({lib_class}) bound_ms={bms:.4f} ({by}: {flop:.3e} flop, "
+                  f"{nbytes:.4e} B) {100 * bms / ms:.1f} % of the bound -> "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"rcan {case} {precision} disagrees with its plain version")
+            results[(case, precision)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                              library_ms=library_ms, bound_ms=bms, bound_by=by)
+            del t, got, want
+        del calls, buf
+        torch.cuda.empty_cache()
+
+    # The body at published widths, as the rcan.roi cell's batches run it.
+    cfg = rcan.rcan_2x()
+    params = params_to_torch(rcan.init_params(torch.Generator().manual_seed(2), cfg), dev)
+    f0 = torch.randn(RCAN_SHAPE, generator=gen, device=dev) * 0.5
+    n_rcab = cfg.groups * cfg.blocks
+    before = profiling.counters()
+    for precision, passes in (("high", 3), ("default", 1)):
+        t0 = time.perf_counter()
+        got = ca.rcan_body(f0, params, passes=passes)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        ms = time_ms(torch, lambda: ca.rcan_body(f0, params, passes=passes), iters=2)
+        t0 = time.perf_counter()
+        want = ca.rcan_body_plain(f0, params, passes=passes)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = (got - want).abs().max().item()
+        limit = KERNEL_TOL[("float32", passes)] * want.abs().max().item()
+        flop = rcan_work("conv1", RCAN_SHAPE, passes)[0] * (2 * n_rcab + cfg.groups + 1)
+        print(f"rcan body {cfg.groups}x{cfg.blocks}x{cfg.features} {list(RCAN_SHAPE)} "
+              f"{precision}: cold {cold:.3f} s, warm {ms:.2f} ms ({flop / (ms * 1e-3) / 1e12:.1f} "
+              f"bf16 TFLOP/s of the convs), plain {plain_s:.3f} s; max|kernels - plain| "
+              f"{err:.3e} (limit {limit:.3e}), max|plain| {want.abs().max().item():.3f}",
+              flush=True)
+        check(bool(torch.isfinite(got).all()) and err <= limit,
+              f"rcan body {precision} strays from rcan_body_plain")
+        del got, want
+    after = profiling.counters()
+    launches = {k: after.get(k, 0) - before.get(k, 0)
+                for k in ("rcan.convs", "rcan.blocks", "rcan.gates")}
+    print(f"rcan body launches: {launches} (counters rcan.convs, rcan.blocks, rcan.gates)",
+          flush=True)
+    calls = 2 * 4  # each class: the cold run, time_ms's warm-up and its two runs
+    check(launches == {"rcan.convs": calls * (n_rcab + cfg.groups + 1),
+                       "rcan.blocks": calls * n_rcab, "rcan.gates": calls * n_rcab},
+          "rcan body launches do not follow its groups and blocks")
+    del params, f0
+    torch.cuda.empty_cache()
+    return results, launches
 
 
 def synthetic_scene(seed: int, h10: int):
@@ -1438,6 +1648,10 @@ def main() -> int:
     del banded_default
     print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = time.perf_counter()
+    rcan_res, rcan_launches_n = phase_rcan(torch)
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
+
     main_b1 = res[("chain", (64, 128, 128, 128), "float32", 3)]
     main_b2 = res[("block", (64, 132, 132, 128), "float32", 1)]
     kernels = [
@@ -1450,6 +1664,17 @@ def main() -> int:
              replaces="dsen2_tpu/ops/pallas/resblock.py:151",
              launches=launches["fused_resblock"], **main_b2),
     ]
+    # RCAN's kernels: "high", the rcan.roi cell's class, at RCAN_SHAPE;
+    # launches in phase 8's runs of the body at published widths.
+    rcan_src = "dsen2_tpu_torch/csrc/resblock_chain.cu"
+    for name, case, counter in (("dsen2_conv3x3 (C=64, ReLU and residual epilogues)", "conv1",
+                                 "rcan.convs"),
+                                ("dsen2_conv3x3_pool (C=64, pooling epilogue)", "conv2_pool",
+                                 "rcan.blocks"),
+                                ("dsen2_ca_gate (ca_gate_kernel)", "gate", "rcan.gates")):
+        kernels.append(dict(name=name, route="cuda", source=rcan_src,
+                            replaces="none: the JAX package has no RCAN",
+                            launches=rcan_launches_n[counter], **rcan_res[(case, "high")]))
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi()}")

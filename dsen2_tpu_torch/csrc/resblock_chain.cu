@@ -18,6 +18,16 @@
 // hi = bf16(v), lo = bf16(v - hi) for activations and weights, and each
 // k-step sums hi*hi + lo*hi + hi*lo into one f32 accumulator ("high").
 //
+// RCAN (models/rcan.py, ops/channel_attention.py) runs the same conv kernel
+// at C = 64 (f32 activations only): a tile is then all 64 output channels
+// (kTileN; m64n64k16 wgmmas, weight slices of 8,192 B a plane). Its block
+// ends in a gate over the whole image, so conv2 takes a third epilogue,
+// EPI_POOL: y = conv(t) + b2 in f32, and each warp's per-channel sums of y
+// over its pixels of the tile, one row each, no atomics. ca_gate_kernel, its
+// own launch, adds the rows in a fixed order, computes the channel attention
+// in f32 and writes x + s * y with the planes the next conv1 reads. The group
+// and long-skip convs are EPI_RESIDUAL at scale 1.
+//
 // Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): 2 * 9 * C^2 flop per
 // pixel per conv, x3 at bf16x3. At [64,128,128,128] one block is 0.625 ms of
 // operations at "default" and 1.875 ms at "high"; the function's own bytes
@@ -133,21 +143,25 @@ constexpr int kKc = 64;                             // input channels per chunk
 constexpr int kRowBytes = kKc * 2;                  // one pixel row of a chunk: 128 B
 constexpr int kWinPlaneBytes = kWinPix * kRowBytes; // 23,040
 constexpr int kWinPlaneStride = 23 * 1024;          // a plane of a window, 1024-aligned
-constexpr int kN = 128;                             // output channels per tile
-constexpr int kSliceBytes = kN * kRowBytes;         // one tap, one chunk, one plane: 16,384
+constexpr int kN = 128;                             // output channels per tile (C >= 128)
 constexpr int kConsumers = 256;                     // two consumer warpgroups
 constexpr int kThreads = kConsumers + 128;          // + the producer warpgroup
 constexpr int kSmemMax = 232448;
 constexpr uint64_t kWatchdogNs = 30000000000ull;    // a 30 s wait is a fault: trap
 
-enum { EPI_RELU = 0, EPI_RESIDUAL = 1 };
+enum { EPI_RELU = 0, EPI_RESIDUAL = 1, EPI_POOL = 2 };
 
-template <int PASSES> struct Cfg {
+// Output channels of a tile: 128, or all of C below that (RCAN's C = 64
+// takes one m64n64k16 tile per k16 step where C >= 128 takes m64n128k16).
+template <int C> constexpr int kTileN = C < kN ? C : kN;
+
+template <int PASSES, int NT = kN> struct Cfg {
   static constexpr int PLANES = PASSES == 3 ? 2 : 1;
   static constexpr int STAGES = PASSES == 3 ? 4 : 8;  // weight ring
   static constexpr int WINS = PASSES == 3 ? 2 : 4;    // window ring
   static constexpr int KSG = PASSES == 3 ? 1 : 2;     // k16 steps per wgmma commit group
-  static constexpr int STAGE_BYTES = PLANES * kSliceBytes;
+  static constexpr int SLICE_BYTES = NT * kRowBytes;  // one tap, chunk and plane: 16,384 at NT 128
+  static constexpr int STAGE_BYTES = PLANES * SLICE_BYTES;
   static constexpr int WIN_BYTES = PLANES * kWinPlaneStride;
   static constexpr int BAR_BYTES = (2 * WINS + 2 * STAGES) * 8;
   static constexpr int USED = STAGES * STAGE_BYTES + WINS * WIN_BYTES + BAR_BYTES;
@@ -158,11 +172,12 @@ template <int PASSES> struct Cfg {
 
 struct ConvArgs {
   const __nv_bfloat16* src;  // input planes [PLANES][B][H][W][C]
-  const __nv_bfloat16* w;    // packed [C/128][C/64][9][PLANES][128][64], swizzled
+  const __nv_bfloat16* w;    // packed [C/NT][C/64][9][PLANES][NT][64], swizzled (NT = kTileN)
   const float* bias;         // [C]
   const void* resid;         // EPI_RESIDUAL: the block's input [B][H][W][C] of T
-  void* out;                 // EPI_RESIDUAL: [B][H][W][C] of T (may be resid)
+  void* out;                 // EPI_RESIDUAL: [B][H][W][C] of T (may be resid); EPI_POOL: y, f32
   __nv_bfloat16* planes;     // EPI_RELU: t planes; EPI_RESIDUAL: out's planes or null
+  float* pool;               // EPI_POOL: per-warp channel sums [B][tiles of an image][2][4][C]
   int B, H, W;
   float scale;
 };
@@ -301,9 +316,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keep the compiler from moving accesses to registers that an in-flight
 // wgmma owns across the fence, commit and wait instructions.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // Shared-memory descriptor of a K-major B tile with the 128-byte swizzle:
@@ -333,7 +349,32 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t 
       "}\n"
       : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d[32] (+)= A[64 x 16] * B[16 x 64]: the same operands, half the columns.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 #undef D8
+}
+
+// One k16 step of a tile NT channels wide.
+__device__ __forceinline__ void wgmma_tile(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  wgmma_m64n128k16(d, a, desc);
+}
+
+__device__ __forceinline__ void wgmma_tile(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  wgmma_m64n64k16(d, a, desc);
 }
 
 // ------------------------------------------------------------- element I/O
@@ -412,13 +453,99 @@ __global__ void split_kernel(const float4* __restrict__ x, __nv_bfloat16* __rest
   }
 }
 
+// RCAN's channel attention, one launch per residual channel-attention block
+// (RCAB) after its conv2 (EPI_POOL), per image b:
+//   mean[c] = (the conv's per-warp sums of y, added in row order) / (H W)
+//   s = sigmoid(Wu relu(Wd mean + bd) + bu)       (f32, C -> R -> C)
+//   out = x + s * y, and out's bf16 planes, which the next conv1 reads.
+// Replaces no TPU kernel: the JAX package has no RCAN. Bytes bound it (x and
+// y read, out and its planes written: 16 B per element at "high", 14 at
+// "default"; 0.32 ms per RCAB at [64,128,128,64] "high"). Each block of
+// gridDim.x per image reduces the sums itself (a reduction across blocks
+// would need a second launch); at [64,128,128,64] that is 128 KB from L2 per
+// block, 6 % of the kernel's bytes. out may be x (in place).
+constexpr int kGateThreads = 512;
+constexpr int kGateMaxC = 256, kGateMaxR = 64;
+
+struct GateArgs {
+  const float* x;          // [B][H][W][C]
+  const float* y;          // [B][H][W][C]
+  const float* pool;       // [B][rows][C]
+  const float* wd;         // [C][R]
+  const float* bd;         // [R]
+  const float* wu;         // [R][C]
+  const float* bu;         // [C]
+  float* out;              // [B][H][W][C], may be x
+  __nv_bfloat16* planes;   // [PLANES][B][H][W][C]
+  int B, H, W, C, R, rows;
+};
+
+template <int PASSES>
+__global__ void __launch_bounds__(kGateThreads) ca_gate_kernel(const GateArgs g) {
+  __shared__ float part[kGateThreads];
+  __shared__ float mean[kGateMaxC], hid[kGateMaxR], s[kGateMaxC];
+  const int b = blockIdx.y, C = g.C, tid = threadIdx.x;
+  // The channel sums: thread tid adds rows k, k + n, ... of channel c, then
+  // thread c adds the n partial sums; a fixed order.
+  const int n = kGateThreads / C, c = tid % C, k = tid / C;
+  const float* rows = g.pool + static_cast<size_t>(b) * g.rows * C;
+  float acc = 0.f;
+  for (int r = k; r < g.rows; r += n) acc += rows[static_cast<size_t>(r) * C + c];
+  part[tid] = acc;
+  __syncthreads();
+  if (tid < C) {
+    float t = 0.f;
+    for (int i = 0; i < n; ++i) t += part[i * C + tid];
+    mean[tid] = t / static_cast<float>(g.H * g.W);
+  }
+  __syncthreads();
+  if (tid < g.R) {
+    float z = g.bd[tid];
+    for (int i = 0; i < C; ++i) z += mean[i] * g.wd[i * g.R + tid];
+    hid[tid] = fmaxf(z, 0.f);
+  }
+  __syncthreads();
+  if (tid < C) {
+    float z = g.bu[tid];
+    for (int j = 0; j < g.R; ++j) z += hid[j] * g.wu[j * C + tid];
+    s[tid] = 1.f / (1.f + expf(-z));
+  }
+  __syncthreads();
+  // out = x + s * y over this block's share of image b, four channels a
+  // thread and step (C is a multiple of 4); the product and the sum are
+  // rounded apart, as in the plain version.
+  const size_t n4 = static_cast<size_t>(g.H) * g.W * C / 4;
+  const size_t base = static_cast<size_t>(b) * n4;
+  const size_t plane_elems = static_cast<size_t>(g.B) * n4 * 4;
+  const float4* x4 = reinterpret_cast<const float4*>(g.x) + base;
+  const float4* y4 = reinterpret_cast<const float4*>(g.y) + base;
+  float4* o4 = reinterpret_cast<float4*>(g.out) + base;
+  for (size_t i = blockIdx.x * static_cast<size_t>(kGateThreads) + tid; i < n4;
+       i += static_cast<size_t>(gridDim.x) * kGateThreads) {
+    const float4 xv = x4[i], yv = y4[i];
+    const int c0 = static_cast<int>((4 * i) % C);
+    float4 o;
+    o.x = __fadd_rn(xv.x, __fmul_rn(s[c0], yv.x));
+    o.y = __fadd_rn(xv.y, __fmul_rn(s[c0 + 1], yv.y));
+    o.z = __fadd_rn(xv.z, __fmul_rn(s[c0 + 2], yv.z));
+    o.w = __fadd_rn(xv.w, __fmul_rn(s[c0 + 3], yv.w));
+    o4[i] = o;
+    const size_t e = 4 * (base + i);
+    const uint32_t h0 = bf16x2_bits(o.x, o.y), h1 = bf16x2_bits(o.z, o.w);
+    *reinterpret_cast<uint2*>(g.planes + e) = make_uint2(h0, h1);
+    if (PASSES == 3)
+      *reinterpret_cast<uint2*>(g.planes + plane_elems + e) =
+          make_uint2(bf16x2_lo_bits(o.x, o.y, h0), bf16x2_lo_bits(o.z, o.w, h1));
+  }
+}
+
 struct TileCoord {
   int b, ty0, tx0, nh;
 };
 
 template <int C>
 __device__ __forceinline__ TileCoord tile_coord(int tile, int H, int W) {
-  constexpr int NH = C / kN;
+  constexpr int NH = C / kTileN<C>;
   const int tx_n = (W + kTile - 1) / kTile, ty_n = (H + kTile - 1) / kTile;
   TileCoord t;
   t.nh = tile % NH;
@@ -436,7 +563,8 @@ __device__ __forceinline__ TileCoord tile_coord(int tile, int H, int W) {
 template <typename T, int C, int PASSES, int EPI>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
     conv_kernel(const ConvArgs a, const __grid_constant__ CUtensorMap win_map, int tiles) {
-  using K = Cfg<PASSES>;
+  constexpr int NT = kTileN<C>;  // output channels of a tile
+  using K = Cfg<PASSES, NT>;
   constexpr int PLANES = K::PLANES, STAGES = K::STAGES, WINS = K::WINS;
   constexpr int KSG = K::KSG;
   constexpr int KC = C / kKc;     // channel chunks
@@ -489,7 +617,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
       int stage = 0;
       uint32_t sphase = 0;
       for (int tile = cluster; tile < tiles; tile += clusters) {
-        const int nh = tile % (C / kN);
+        const int nh = tile % (C / NT);
         for (int slot = 0; slot < SLOTS; ++slot) {  // (kc, tap) = (slot / 9, slot % 9)
           mbar_wait(empty(stage), sphase ^ 1);
           mbar_expect_tx(full(stage), K::STAGE_BYTES);
@@ -535,7 +663,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int mc = 0; mc < 2; ++mc) pix0[mc] = (mc * 4 + wq) * kWin + arow;
 
-    float acc[2][64];
+    float acc[2][NT / 2];
     uint32_t areg[2][KSG][2][PLANES][4];  // [set][k16 step][mc][plane]
     int wbuf = 0, stage = 0, prev = -1;
     uint32_t wphase = 0, sphase = 0;
@@ -591,11 +719,11 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
               const uint64_t d_hi = b_desc(bst + ks * 32);
 #pragma unroll
               for (int mc = 0; mc < 2; ++mc) {
-                wgmma_m64n128k16(acc[mc], av[u][mc][0], d_hi);
+                wgmma_tile(acc[mc], av[u][mc][0], d_hi);
                 if (PASSES == 3) {
-                  const uint64_t d_lo = b_desc(bst + kSliceBytes + ks * 32);
-                  wgmma_m64n128k16(acc[mc], av[u][mc][1], d_hi);
-                  wgmma_m64n128k16(acc[mc], av[u][mc][0], d_lo);
+                  const uint64_t d_lo = b_desc(bst + K::SLICE_BYTES + ks * 32);
+                  wgmma_tile(acc[mc], av[u][mc][1], d_hi);
+                  wgmma_tile(acc[mc], av[u][mc][0], d_lo);
                 }
               }
             }
@@ -637,16 +765,16 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
       // lanes q of one g) holds a pixel's channels.
       const TileCoord tc = tile_coord<C>(tile, H, W);
       const int g = lane / 4, q = lane % 4;
-      size_t pix[4];  // element offset of this thread's pixels at channel 128 nh
+      size_t pix[4];  // element offset of this thread's pixels at channel NT nh
       bool inside[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int iy = tc.ty0 + kRows * rank + (r / 2) * 4 + wq, ix = tc.tx0 + g + 8 * (r % 2);
         inside[r] = iy < H && ix < W;
-        pix[r] = ((static_cast<size_t>(tc.b) * H + iy) * W + ix) * C + tc.nh * kN;
+        pix[r] = ((static_cast<size_t>(tc.b) * H + iy) * W + ix) * C + tc.nh * NT;
       }
       // bias + 4 j: the bias of channels 8 j + 2 q, + 1
-      const float2* __restrict__ bias = reinterpret_cast<const float2*>(a.bias + tc.nh * kN) + q;
+      const float2* __restrict__ bias = reinterpret_cast<const float2*>(a.bias + tc.nh * NT) + q;
       if (EPI == EPI_RELU) {
         // The bf16 planes of t: per row and four n8 tiles, a transpose inside
         // the quad gives lane q tile 4 t + q's 8 channels, so each lane
@@ -657,7 +785,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
           const int mc = r / 2, h = r % 2;
           const bool keep = inside[r];
 #pragma unroll
-          for (int t = 0; t < 4; ++t) {
+          for (int t = 0; t < NT / 32; ++t) {
             uint32_t hi[4], lo[4];
 #pragma unroll
             for (int jj = 0; jj < 4; ++jj) {
@@ -677,13 +805,52 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
             }
           }
         }
+      } else if (EPI == EPI_POOL) {
+        // y = conv + bias in f32 pairs, as the residual epilogue stores them,
+        // and the sum of y over this warp's pixels of the tile for each
+        // channel: per thread over its four rows, then across the eight
+        // lanes g that hold the same channels. Lanes g = 0 write the warp's
+        // row of a.pool; the gate kernel adds the rows in a fixed order, so
+        // no atomics and the same bits every run.
+        float sum[NT / 4];  // channels 8 j + 2 q and + 1 at sum[2 j], sum[2 j + 1]
+#pragma unroll
+        for (int i = 0; i < NT / 4; ++i) sum[i] = 0.f;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int mc = r / 2, h = r % 2;
+          const bool keep = inside[r];
+#pragma unroll
+          for (int j = 0; j < NT / 8; ++j) {
+            const float2 bj = __ldg(bias + 4 * j);
+            const float v0 = acc[mc][4 * j + 2 * h] + bj.x;
+            const float v1 = acc[mc][4 * j + 2 * h + 1] + bj.y;
+            if (keep) {
+              store2(static_cast<float*>(a.out) + pix[r] + 8 * j + 2 * q, v0, v1);
+              sum[2 * j] += v0;
+              sum[2 * j + 1] += v1;
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < NT / 4; ++i)
+#pragma unroll
+          for (int m = 4; m < 32; m *= 2) sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], m);
+        if (g == 0) {
+          const int tx_n = (W + kTile - 1) / kTile, ty_n = (H + kTile - 1) / kTile;
+          const int in_image = (tc.ty0 / kTile) * tx_n + tc.tx0 / kTile;
+          float* row = a.pool +
+                       ((((static_cast<size_t>(tc.b) * ty_n * tx_n + in_image) * kCluster + rank) *
+                             4 + wq) * C + tc.nh * NT + 2 * q);
+#pragma unroll
+          for (int j = 0; j < NT / 8; ++j) store2(row + 8 * j, sum[2 * j], sum[2 * j + 1]);
+        }
       } else {
         // f32 (or bf16) pairs: a quad reads and writes a pixel's 8 channels,
-        // whole 32-byte sectors in f32. Each row is two segments of 64
+        // whole 32-byte sectors in f32. Each row is two segments of NT / 2
         // channels; the residual of segment s + 1 is loaded before segment s
         // is stored (out may be the residual itself, so the compiler would
         // not hoist the loads).
-        constexpr int SEG = kN / 16;  // n8 tiles per segment
+        constexpr int SEG = NT / 16;  // n8 tiles per segment
         float2 xr[2][SEG];
         auto load_seg = [&](int s, float2(&d)[SEG]) {
           if (inside[s / 2])
@@ -753,6 +920,7 @@ int encode_window_map(CUtensorMap* map, const ConvArgs& a, int C, int planes) {
 // clusters of this instantiation fit on the device at once (the grid).
 template <typename T, int C, int PASSES, int EPI>
 int launch_conv(const ConvArgs* a, cudaStream_t stream, int* clusters) {
+  using K = Cfg<PASSES, kTileN<C>>;
   auto kernel = conv_kernel<T, C, PASSES, EPI>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -764,13 +932,12 @@ int launch_conv(const ConvArgs* a, cudaStream_t stream, int* clusters) {
   static std::atomic<int> resident[64];
   int fit = resident[dev].load(std::memory_order_acquire);
   if (fit == 0) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Cfg<PASSES>::SMEM);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(kCluster, 1, 1);
     cfg.blockDim = dim3(kThreads, 1, 1);
-    cfg.dynamicSmemBytes = Cfg<PASSES>::SMEM;
+    cfg.dynamicSmemBytes = K::SMEM;
     err = cudaOccupancyMaxActiveClusters(&fit, reinterpret_cast<const void*>(kernel), &cfg);
     if (err != cudaSuccess) return (int)err;
     if (fit <= 0) return -1;
@@ -779,16 +946,18 @@ int launch_conv(const ConvArgs* a, cudaStream_t stream, int* clusters) {
   if (clusters != nullptr) *clusters = fit;
   if (a == nullptr) return 0;
   const long long tiles = static_cast<long long>(a->B) * ((a->H + kTile - 1) / kTile) *
-                          ((a->W + kTile - 1) / kTile) * (C / kN);
+                          ((a->W + kTile - 1) / kTile) * (C / kTileN<C>);
   if (tiles <= 0 || tiles > (1LL << 30)) return -1;
   CUtensorMap win_map;
-  const int bad = encode_window_map(&win_map, *a, C, Cfg<PASSES>::PLANES);
+  const int bad = encode_window_map(&win_map, *a, C, K::PLANES);
   if (bad != 0) return bad;
   const int grid = kCluster * (tiles < fit ? static_cast<int>(tiles) : fit);
-  kernel<<<grid, kThreads, Cfg<PASSES>::SMEM, stream>>>(*a, win_map, static_cast<int>(tiles));
+  kernel<<<grid, kThreads, K::SMEM, stream>>>(*a, win_map, static_cast<int>(tiles));
   return (int)cudaGetLastError();
 }
 
+// C = 64 (RCAN) takes f32 activations only, and is the one width with the
+// pooling epilogue; C = 128 and 256 (DSen2, VDSen2) also take bf16 ones.
 template <int C>
 int dispatch(const ConvArgs* a, int passes, int dtype, int epilogue, cudaStream_t s,
              int* clusters) {
@@ -797,17 +966,27 @@ int dispatch(const ConvArgs* a, int passes, int dtype, int epilogue, cudaStream_
     if (passes == 3) return launch_conv<float, C, 3, EPI_RELU>(a, s, clusters);
     return -1;
   }
+  if (epilogue == EPI_POOL) {
+    if constexpr (C == 64) {
+      if (dtype == 0 && passes == 1) return launch_conv<float, C, 1, EPI_POOL>(a, s, clusters);
+      if (dtype == 0 && passes == 3) return launch_conv<float, C, 3, EPI_POOL>(a, s, clusters);
+    }
+    return -1;
+  }
   if (epilogue != EPI_RESIDUAL) return -1;
   if (dtype == 0 && passes == 1) return launch_conv<float, C, 1, EPI_RESIDUAL>(a, s, clusters);
   if (dtype == 0 && passes == 3) return launch_conv<float, C, 3, EPI_RESIDUAL>(a, s, clusters);
-  if (dtype == 1 && passes == 1)
-    return launch_conv<__nv_bfloat16, C, 1, EPI_RESIDUAL>(a, s, clusters);
+  if constexpr (C != 64) {
+    if (dtype == 1 && passes == 1)
+      return launch_conv<__nv_bfloat16, C, 1, EPI_RESIDUAL>(a, s, clusters);
+  }
   return -1;
 }
 
 int dispatch_c(const ConvArgs* a, int C, int passes, int dtype, int epilogue, cudaStream_t s,
                int* clusters) {
   switch (C) {
+    case 64: return dispatch<64>(a, passes, dtype, epilogue, s, clusters);
     case 128: return dispatch<128>(a, passes, dtype, epilogue, s, clusters);
     case 256: return dispatch<256>(a, passes, dtype, epilogue, s, clusters);
     default: return -1;
@@ -863,7 +1042,74 @@ extern "C" int dsen2_conv3x3(const void* src, const void* w, const float* bias,
     if (reinterpret_cast<uintptr_t>(p) % 16) return -1;
   if (epilogue == EPI_RELU && planes == nullptr) return -1;
   if (epilogue == EPI_RESIDUAL && (resid == nullptr || out == nullptr)) return -1;
+  if (epilogue != EPI_RELU && epilogue != EPI_RESIDUAL) return -1;
+  a.pool = nullptr;
   return dispatch_c(&a, C, passes, dtype, epilogue, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// One 3x3 SAME conv of f32 activations' planes `src` with the pooling
+// epilogue (C = 64): out = conv + bias (f32), and each warp's per-channel
+// sum of out over its pixels of each tile into pool, [B][rows][C] with
+// rows = ceil(H / 16) * ceil(W / 16) * 8 per image.
+extern "C" int dsen2_conv3x3_pool(const void* src, const void* w, const float* bias, void* out,
+                                  void* pool, int B, int H, int W, int C, int passes,
+                                  void* stream) {
+  ConvArgs a = {};
+  a.src = static_cast<const __nv_bfloat16*>(src);
+  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.bias = bias;
+  a.out = out;
+  a.pool = static_cast<float*>(pool);
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.scale = 1.f;
+  if (B <= 0 || H <= 0 || W <= 0) return -1;
+  const void* tensors[] = {src, w, bias, out, pool};
+  for (const void* p : tensors)
+    if (p == nullptr || reinterpret_cast<uintptr_t>(p) % 16) return -1;
+  return dispatch_c(&a, C, passes, 0, EPI_POOL, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// RCAN's channel gate after dsen2_conv3x3_pool (ca_gate_kernel): out = x +
+// s * y and out's bf16 planes, s from pool's sums of y; f32 throughout.
+// C a multiple of 4 dividing 512, at most 256; R at most 64 and C.
+extern "C" int dsen2_ca_gate(const void* x, const void* y, const void* pool, const void* wd,
+                             const void* bd, const void* wu, const void* bu, void* out,
+                             void* planes, int B, int H, int W, int C, int R, int passes,
+                             void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C > kGateMaxC || C % 4 || kGateThreads % C ||
+      R <= 0 || R > kGateMaxR || R > C || (passes != 1 && passes != 3))
+    return -1;
+  const void* tensors[] = {x, y, pool, out, planes};
+  for (const void* p : tensors)
+    if (p == nullptr || reinterpret_cast<uintptr_t>(p) % 16) return -1;
+  if (wd == nullptr || bd == nullptr || wu == nullptr || bu == nullptr) return -1;
+  GateArgs g;
+  g.x = static_cast<const float*>(x);
+  g.y = static_cast<const float*>(y);
+  g.pool = static_cast<const float*>(pool);
+  g.wd = static_cast<const float*>(wd);
+  g.bd = static_cast<const float*>(bd);
+  g.wu = static_cast<const float*>(wu);
+  g.bu = static_cast<const float*>(bu);
+  g.out = static_cast<float*>(out);
+  g.planes = static_cast<__nv_bfloat16*>(planes);
+  g.B = B;
+  g.H = H;
+  g.W = W;
+  g.C = C;
+  g.R = R;
+  g.rows = ((H + kTile - 1) / kTile) * ((W + kTile - 1) / kTile) * kCluster * 4;
+  // Blocks per image: about 128 float4 steps a thread.
+  const long long n4 = static_cast<long long>(H) * W * C / 4;
+  const long long per = (n4 + 128LL * kGateThreads - 1) / (128LL * kGateThreads);
+  if (B > 65535) return -1;
+  const dim3 grid(static_cast<unsigned>(per), static_cast<unsigned>(B));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (passes == 1) ca_gate_kernel<1><<<grid, kGateThreads, 0, s>>>(g);
+  else ca_gate_kernel<3><<<grid, kGateThreads, 0, s>>>(g);
+  return (int)cudaGetLastError();
 }
 
 // The clusters of two CTAs that the conv of these arguments launches at

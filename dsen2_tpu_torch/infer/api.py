@@ -3,8 +3,12 @@
 The counterpart of dsen2_tpu/infer/api.py. One pipeline serves both heads:
 
     symmetric halo pad -> per-chunk patch gather -> per-patch bilinear
-    LR->HR upsample (two f32 matmuls) -> s2net -> border crop ->
+    LR->HR upsample (two f32 matmuls) -> the net -> border crop ->
     last-write-wins mosaic
+
+The net is s2net (DSen2, VDSen2) or, for an RCANConfig, RCAN (models/rcan);
+every route (one-shot, banded, sharded, ensemble) runs either through
+sr_tile.
 
 The schedule (patch starts, output positions, chunks) is host numpy, as in
 the JAX package; the rasters, the padded images, every chunk and the mosaic
@@ -27,7 +31,7 @@ import torch
 from dsen2_tpu_torch.core.bands import SCALE
 from dsen2_tpu_torch.core.config import InferConfig, ModelConfig, dsen2_2x, dsen2_6x
 from dsen2_tpu_torch.core.device import resolve_device, upload
-from dsen2_tpu_torch.models import s2net
+from dsen2_tpu_torch.models import rcan, s2net
 from dsen2_tpu_torch.ops.resize import upsample_patches
 from dsen2_tpu_torch.ops.tiling import (
     PatchGrid, gather_patches, pad_symmetric, recompose_positions, write_interiors,
@@ -132,6 +136,12 @@ def _host_view(t: torch.Tensor, out_dtype: np.dtype) -> np.ndarray:
     return a if a.dtype == out_dtype else a.view(out_dtype)
 
 
+def net_apply(cfg):
+    """The forward pass of cfg's net: rcan.apply for an RCANConfig, else
+    s2net.apply."""
+    return rcan.apply if isinstance(cfg, rcan.RCANConfig) else s2net.apply
+
+
 def sr_tile(
     params,
     inputs: Tuple[torch.Tensor, ...],
@@ -174,8 +184,8 @@ def sr_tile(
                    for i, (pad, g) in enumerate(zip(padded, grids))]
         net_in = [patches[0] * inv_scale]
         net_in += [upsample_patches(p, (p_hr, p_hr)) * inv_scale for p in patches[1:]]
-        pred = s2net.apply(params, net_in, cfg, precision=infer_cfg.precision,
-                           use_kernels=infer_cfg.use_kernels)
+        pred = net_apply(cfg)(params, net_in, cfg, precision=infer_cfg.precision,
+                              use_kernels=infer_cfg.use_kernels)
         pred = pred.float() * SCALE
         interiors = pred[:, border : p_hr - border, border : p_hr - border, :]
         interiors = _quantize(interiors, out_dtype) if integer else interiors.to(mosaic.dtype)
@@ -455,6 +465,7 @@ def dsen2_20(
     mesh=None,
     ensemble: bool = False,
     device: Device = None,
+    model: Optional[rcan.RCANConfig] = None,
 ) -> np.ndarray:
     """Super-resolve the six 20 m bands to 10 m.
 
@@ -462,10 +473,18 @@ def dsen2_20(
     (B5, B6, B7, B8A, B11, B12). ensemble=True averages over the 8 dihedral
     transforms (8x the compute). Runs on "cuda" unless `device` says
     otherwise. With a mesh (parallel.make_mesh), ONE tile's patch grid
-    shards over the mesh's 'data' axis."""
-    cfg = dsen2_2x(deep)
+    shards over the mesh's 'data' axis.
+
+    model=None runs DSen2 (VDSen2 with deep=True); an RCANConfig
+    (models.rcan.rcan_2x()) runs RCAN instead, with `params` in
+    models.rcan.init_params's layout (there are no shipped RCAN weights;
+    `deep` is then not read)."""
+    cfg = dsen2_2x(deep) if model is None else model
     infer_cfg = infer_cfg or InferConfig(patch_size=128, border=8)
     if params is None:
+        if model is not None:
+            raise ValueError("RCAN has no shipped weights: pass params= "
+                             "(models.rcan.init_params's layout)")
         params = default_params(cfg, run_60=False, deep=deep)
     run = _run_ensembled if ensemble else _run
     return run([d10, d20], 2, cfg, params, infer_cfg, device, mesh=mesh)

@@ -64,6 +64,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dsen2_conv3x3.restype = i
     lib.dsen2_conv3x3_clusters.argtypes = [i, i, i, i]
     lib.dsen2_conv3x3_clusters.restype = i
+    lib.dsen2_conv3x3_pool.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.dsen2_conv3x3_pool.restype = i
+    lib.dsen2_ca_gate.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.dsen2_ca_gate.restype = i
     return lib
 
 

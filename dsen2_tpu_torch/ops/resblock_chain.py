@@ -30,16 +30,22 @@ from dsen2_tpu_torch.utils import profiling
 __all__ = [
     "fused_resblock_chain", "resblock_chain_plain", "resblock_plain",
     "pack_weights", "split_planes", "KERNEL_CHANNELS", "count_launches",
-    "schedule_counts", "count_tiles",
+    "schedule_counts", "count_tiles", "count_conv_tiles", "tile_channels",
 ]
 
 # Feature counts the CUDA kernel is instantiated for (csrc/resblock_chain.cu,
-# dispatch<C>): DSen2's 128 and VDSen2's 256.
-KERNEL_CHANNELS = (128, 256)
+# dispatch<C>): RCAN's 64, DSen2's 128 and VDSen2's 256.
+KERNEL_CHANNELS = (64, 128, 256)
 # The conv kernel's schedule (csrc/resblock_chain.cu, header): a cluster of
-# two CTAs takes a 16 x 16 pixel x 128 channel tile; each CTA its 8 x 16 half.
+# two CTAs takes a 16 x 16 pixel x 128 channel tile (64 at C = 64); each CTA
+# its 8 x 16 half.
 CLUSTER_TILE = 16
 CLUSTER_CTAS = 2
+
+
+def tile_channels(c: int) -> int:
+    """Output channels of one tile of the conv kernel: 128, or C below that."""
+    return min(c, 128)
 
 
 def _conv(x: torch.Tensor, w: torch.Tensor, passes: int) -> torch.Tensor:
@@ -88,21 +94,23 @@ def split_planes(v: torch.Tensor, passes: int) -> torch.Tensor:
 
 
 def pack_weights(w: torch.Tensor, passes: int) -> torch.Tensor:
-    """[..., 3, 3, C, C] HWIO weights -> [..., C/128, C/64, 9, planes, 128, 64]
-    bf16, the shared-memory layout the kernel's B descriptor reads: for output
-    half nh, input chunk kc and tap, one 16 KB slice per plane holding
-    w[tap, 64 kc + k, 128 nh + n] at row n, 16-byte group (k / 8) ^ (n % 8),
-    element k % 8 (K-major with the 128-byte swizzle). One bulk copy moves a
-    (nh, kc, tap) slice with all its planes. Done once per wrapper call, from
-    the tensor as given; nothing is cached."""
+    """[..., 3, 3, C, C] HWIO weights -> [..., C/N, C/64, 9, planes, N, 64]
+    bf16 with N = tile_channels(C), the shared-memory layout the kernel's B
+    descriptor reads: for output part nh, input chunk kc and tap, one slice
+    of N x 128 bytes per plane holding w[tap, 64 kc + k, N nh + n] at row n,
+    16-byte group (k / 8) ^ (n % 8), element k % 8 (K-major with the
+    128-byte swizzle). One bulk copy moves a (nh, kc, tap) slice with all its
+    planes. Done once per wrapper call, from the tensor as given; nothing is
+    cached."""
     c = w.shape[-1]
+    nt = tile_channels(c)
     lead = w.shape[:-4]
     nl = len(lead)
-    p = split_planes(w.reshape(*lead, 9, c // 64, 64, c // 128, 128), passes)
+    p = split_planes(w.reshape(*lead, 9, c // 64, 64, c // nt, nt), passes)
     # [P, ..., tap, kc, k, nh, n] -> [..., nh, kc, tap, P, n, k]
     d = [1 + i for i in range(nl)]
     p = p.permute(*d, nl + 4, nl + 2, nl + 1, 0, nl + 5, nl + 3)
-    n = torch.arange(128, device=w.device)[:, None]
+    n = torch.arange(nt, device=w.device)[:, None]
     group = torch.arange(8, device=w.device)[None, :] ^ (n % 8)
     p = p.reshape(*p.shape[:-1], 8, 8)[..., n, group, :]
     return p.reshape(*p.shape[:-2], 64).contiguous()
@@ -143,12 +151,12 @@ def count_launches(wrapper, n: int) -> None:
 def schedule_counts(b: int, h: int, w: int, c: int, clusters: int) -> tuple[int, int]:
     """(tiles, overlapped) of one conv launch on [b, h, w, c] with `clusters`
     co-resident clusters. A tile is what one warpgroup owns: 8 x 16 pixels x
-    128 channels, one CTA's half of a cluster tile. The launch runs
+    tile_channels(c) channels, one CTA's half of a cluster tile. The launch runs
     n = min(clusters, T) clusters over the T cluster tiles; cluster i takes
     tiles i, i + n, ..., and in each of its two CTAs the warpgroups take them
     in turn, so every tile but a CTA's last has its epilogue beside the other
     warpgroup's mainloop: overlapped = 2 (T - n)."""
-    steps = b * -(-h // CLUSTER_TILE) * -(-w // CLUSTER_TILE) * (c // 128)
+    steps = b * -(-h // CLUSTER_TILE) * -(-w // CLUSTER_TILE) * (c // tile_channels(c))
     n = min(clusters, steps)
     return CLUSTER_CTAS * steps, CLUSTER_CTAS * (steps - n)
 
@@ -159,17 +167,26 @@ def count_tiles(lib, shape, passes: int, f32: bool, nblocks: int) -> None:
     geometry: the library reports how many clusters of each instantiation fit
     on the current device (it reads that once per device and instantiation;
     nothing is read back from the device). Raises if none fits."""
+    count_conv_tiles(lib, shape, passes, ((0, 0, nblocks), (1, 0 if f32 else 1, nblocks)))
+
+
+def count_conv_tiles(lib, shape, passes: int, convs) -> None:
+    """Add to b1.tiles and b1.tiles_overlapped the tiles of `convs`, a
+    sequence of (epilogue, dtype, number of launches) of the conv kernel on
+    x of `shape` (epilogue 0: ReLU, 1: residual, 2: pooling), from the launch
+    geometry alone. Raises if no cluster of an instantiation fits."""
     bsz, h, w, c = shape
     tiles = overlapped = 0
-    for epilogue, dtype in ((0, 0), (1, 0 if f32 else 1)):
+    for epilogue, dtype, n in convs:
         clusters = lib.dsen2_conv3x3_clusters(c, passes, dtype, epilogue)
         if clusters <= 0:
-            raise RuntimeError(f"conv{epilogue + 1}: no cluster fits the device (error {clusters})")
+            raise RuntimeError(f"epilogue {epilogue}: no cluster fits the device "
+                               f"(error {clusters})")
         t, o = schedule_counts(bsz, h, w, c, clusters)
-        tiles += t
-        overlapped += o
-    profiling.count("b1.tiles", nblocks * tiles)
-    profiling.count("b1.tiles_overlapped", nblocks * overlapped)
+        tiles += n * t
+        overlapped += n * o
+    profiling.count("b1.tiles", tiles)
+    profiling.count("b1.tiles_overlapped", overlapped)
 
 
 def _check(err: int, what: str) -> None:
@@ -192,6 +209,8 @@ def launch_blocks(x, w1, b1, w2, b2, scale: float, passes: int) -> torch.Tensor:
     c = x.shape[-1]
     if c not in KERNEL_CHANNELS:
         raise ValueError(f"the kernel takes C in {KERNEL_CHANNELS}, got C={c}")
+    if c < 128 and x.dtype != torch.float32:
+        raise ValueError(f"the kernel takes C={c} for float32 activations only")
     for t in (w1, b1, w2, b2):
         if t.device != x.device:
             raise ValueError(f"weights on {t.device}, activations on {x.device}")

@@ -15,6 +15,7 @@ from dsen2_tpu_torch.core.config import ModelConfig
 from dsen2_tpu_torch.models import s2net
 from dsen2_tpu_torch.ops import conv as conv_mod
 from dsen2_tpu_torch.ops import resblock, resblock_chain
+from dsen2_tpu_torch.utils import profiling
 from dsen2_tpu_torch.weights import params_to_torch
 
 pytestmark = pytest.mark.cuda
@@ -103,8 +104,8 @@ def _schedule_shape(case, c, passes):
     16-row image whose width gives the number of 16 x 16 x 128 tiles."""
     n = _clusters(c, passes, 0, 1)
 
-    def width(tiles):  # a 16-pixel column gives c / 128 tiles
-        return 16 * -(-tiles // (c // 128))
+    def width(tiles):  # a 16-pixel column gives c / 128 tiles (one at C = 64)
+        return 16 * -(-tiles // max(c // 128, 1))
 
     return {
         # one pixel tile: warpgroup 1 of each CTA has no tile (C = 256: one
@@ -476,3 +477,167 @@ def test_tile_sharded_over_a_repeated_gpu_equals_one_device(dev):
     np.testing.assert_array_equal(got, want)
     assert blocks >= 2 * cfg.num_layers
     assert np.array_equal(api._run(rasters, 2, cfg, params, icfg, mesh=mesh), want)
+
+
+# ------------------------------------------------------------ RCAN (C = 64)
+
+def _c64_args(dev, shape, k, seed):
+    return _block_args(dev, shape, k, torch.float32, seed=seed)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 64), (2, 20, 36, 64), (1, 37, 19, 64),
+                                   (64, 128, 128, 64)])
+@pytest.mark.parametrize("passes", [3, 1])
+def test_c64_conv_kernel_matches_plain_and_reruns_bit_equal(dev, shape, passes):
+    """The conv kernel at C = 64 (one m64n64k16 tile of all 64 channels)
+    with the ReLU and residual epilogues, through B1's wrapper; the last
+    shape is a batch of RCAN's patches."""
+    x, w1, b1, w2, b2 = _c64_args(dev, shape, 2, seed=12)
+    _check_and_rerun(
+        lambda: resblock_chain.fused_resblock_chain(x, w1, b1, w2, b2, passes=passes),
+        lambda: resblock_chain.resblock_chain_plain(x, w1, b1, w2, b2, passes=passes),
+        TOL[(torch.float32, passes)])
+
+
+@pytest.mark.parametrize("case", ["one_tile", "cta_half_outside", "clusters_plus_one",
+                                  "three_waves_plus_one"])
+@pytest.mark.parametrize("passes", [3, 1])
+def test_c64_schedule_edges_match_plain(dev, case, passes):
+    shape = _schedule_shape(case, 64, passes)
+    x, w1, b1, w2, b2 = _c64_args(dev, shape, 2, seed=13)
+    _check_and_rerun(
+        lambda: resblock_chain.fused_resblock_chain(x, w1, b1, w2, b2, passes=passes),
+        lambda: resblock_chain.resblock_chain_plain(x, w1, b1, w2, b2, passes=passes),
+        TOL[(torch.float32, passes)])
+
+
+def test_c64_rejects_bf16_activations(dev):
+    x, w1, b1, w2, b2 = _c64_args(dev, (1, 16, 16, 64), 1, seed=1)
+    with pytest.raises(ValueError, match="float32"):
+        resblock_chain.fused_resblock_chain(x.bfloat16(), w1, b1, w2, b2, passes=1)
+
+
+def _pool_conv(dev, shape, passes, seed):
+    """conv2 with the pooling epilogue on t of `shape`: (y, pool, plain y)."""
+    from dsen2_tpu_torch.ops._build import load_library
+    from dsen2_tpu_torch.ops.channel_attention import pool_rows
+
+    t, w, b, _, _ = _c64_args(dev, shape, 1, seed)
+    t = torch.relu(t)
+    bsz, h, wd, c = shape
+    planes = resblock_chain.split_planes(t, passes).contiguous()
+    packed = resblock_chain.pack_weights(w[0], passes)
+    bias = b[0].contiguous()
+    y = torch.empty_like(t)
+    pool = torch.full((bsz, pool_rows(h, wd), c), float("nan"), device=dev)
+    err = load_library().dsen2_conv3x3_pool(
+        planes.data_ptr(), packed.data_ptr(), bias.data_ptr(), y.data_ptr(), pool.data_ptr(),
+        bsz, h, wd, c, passes, torch.cuda.current_stream(dev).cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    plain = resblock_chain._conv(t, w[0], passes) + b[0]
+    return y, pool, plain
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (3, 37, 21, 64), (64, 128, 128, 64)])
+@pytest.mark.parametrize("passes", [3, 1])
+def test_pooling_epilogue_matches_plain(dev, shape, passes):
+    """y = conv + bias in f32 and each warp's sums of y, in the layout of
+    channel_attention.pool_sums_plain, against the plain conv; every row of
+    the sums is written (none left NaN)."""
+    from dsen2_tpu_torch.ops.channel_attention import pool_sums_plain
+
+    y, pool, plain = _pool_conv(dev, shape, passes, seed=14)
+    tol = TOL[(torch.float32, passes)]
+    scale = plain.abs().max().item()
+    assert (y - plain).abs().max().item() <= tol * scale
+    assert torch.isfinite(pool).all()
+    want = pool_sums_plain(y)  # the kernel's own y, so the sums alone are compared
+    assert (pool - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    y2, pool2, _ = _pool_conv(dev, shape, passes, seed=14)
+    assert torch.equal(y, y2) and torch.equal(pool, pool2)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (3, 37, 21, 64), (64, 128, 128, 64)])
+@pytest.mark.parametrize("passes", [3, 1])
+def test_gate_kernel_matches_plain(dev, shape, passes):
+    """x + s * y and its planes against the gate's plain version on the same
+    sums; in place (out = x) equals out of place; the same bits twice."""
+    from dsen2_tpu_torch.ops import channel_attention as ca
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    x, y = (torch.randn(shape, generator=g, device=dev) for _ in range(2))
+    c = shape[-1]
+    wd, bd = torch.randn((c, 4), generator=g, device=dev) * 0.2, torch.randn(4, device=dev)
+    wu, bu = torch.randn((4, c), generator=g, device=dev) * 0.5, torch.randn(c, device=dev)
+    pool = ca.pool_sums_plain(y)
+    before = profiling.counters().get("rcan.gates", 0)
+    out, planes = ca.ca_gate(x, y, pool, wd, bd, wu, bu, passes=passes)
+    torch.cuda.synchronize()
+    assert profiling.counters()["rcan.gates"] == before + 1
+    want, want_planes = ca.ca_gate(*(t.cpu() for t in (x, y, pool, wd, bd, wu, bu)),
+                                   passes=passes)
+    assert (out.cpu() - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    assert planes.shape == want_planes.shape
+    recon = planes.float().sum(0).cpu()
+    assert (recon - want).abs().max().item() <= (2e-5 if passes == 3 else 8e-3) * \
+        want.abs().max().item()
+    again, _ = ca.ca_gate(x, y, pool, wd, bd, wu, bu, passes=passes)
+    assert torch.equal(out, again)
+
+
+def _rcan_case(dev, seed=0, groups=2, blocks=3):
+    from dsen2_tpu_torch.models import rcan
+
+    cfg = rcan.RCANConfig(groups=groups, blocks=blocks, features=64, reduction=16)
+    params = params_to_torch(rcan.init_params(torch.Generator().manual_seed(seed), cfg), dev)
+    return cfg, params
+
+
+@pytest.mark.parametrize("precision,tol", [("high", 1e-4), ("default", 2e-2)])
+@pytest.mark.parametrize("hw", [(128, 128), (40, 56)])
+def test_rcan_kernels_track_highest(dev, precision, tol, hw):
+    """A small RCAN (2 groups x 3 RCABs at 64 features) through the kernels
+    against the same net at "highest" on the card; the body is the span
+    s2net.rcan and the counters move by the blocks and gates run."""
+    from dsen2_tpu_torch.models import rcan
+
+    cfg, params = _rcan_case(dev, seed=5)
+    rng = np.random.default_rng(6)
+    xs = [torch.as_tensor(rng.random((3, *hw, c), np.float32) * 2, device=dev)
+          for c in cfg.in_channels]
+    want = rcan.apply(params, xs, cfg, precision="highest", use_kernels=False)
+    before = profiling.counters()
+    got = rcan.apply(params, xs, cfg, precision=precision, use_kernels=None)
+    after = profiling.counters()
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+    assert after["rcan.blocks"] - before.get("rcan.blocks", 0) == 6
+    assert after["rcan.gates"] - before.get("rcan.gates", 0) == 6
+    assert after["rcan.convs"] - before.get("rcan.convs", 0) == 6 + 2 + 1
+    assert after["b1.tiles"] > before.get("b1.tiles", 0)
+    assert torch.equal(got, rcan.apply(params, xs, cfg, precision=precision, use_kernels=None))
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_rcan_through_dsen2_20_on_card(dev, precision):
+    """dsen2_20 with the RCAN config, one-shot and banded, on the card
+    against the same call on the CPU at "highest"."""
+    from dsen2_tpu_torch.core.config import InferConfig
+    from dsen2_tpu_torch.infer import api, engine
+    from dsen2_tpu_torch.models import rcan
+
+    cfg = rcan.RCANConfig(groups=2, blocks=3, features=64, reduction=16)
+    params = rcan.init_params(torch.Generator().manual_seed(7), cfg)
+    rng = np.random.default_rng(8)
+    rasters = [(rng.random((232, 200, 4)) * 8000).astype(np.uint16),
+               (rng.random((116, 100, 6)) * 8000).astype(np.uint16)]
+    icfg = InferConfig(patch_size=128, border=8, batch_size=8, precision=precision)
+    got = api.dsen2_20(*rasters, params=params, infer_cfg=icfg, model=cfg)
+    banded = engine.sr_banded(rasters, 2, cfg, params, icfg, rows_per_band=1)
+    want = api.dsen2_20(*rasters, params=params, model=cfg, device="cpu",
+                        infer_cfg=InferConfig(patch_size=128, border=8, batch_size=8,
+                                              precision="highest"))
+    tol = {"high": 1e-4, "default": 2e-2}[precision]
+    top = np.abs(want).max()
+    assert np.abs(got - want).max() <= tol * top
+    assert np.abs(banded - want).max() <= tol * top

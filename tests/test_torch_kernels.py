@@ -147,7 +147,7 @@ def _walk_schedule(b, h, w, c, clusters):
     two CTAs takes its 8-row half of each, and the CTA's two warpgroups take
     them in turn. A tile's epilogue overlaps when the CTA has a next tile,
     whose mainloop the other warpgroup runs beside it."""
-    steps = b * ((h + 15) // 16) * ((w + 15) // 16) * (c // 128)
+    steps = b * ((h + 15) // 16) * ((w + 15) // 16) * (c // min(c, 128))
     n = min(clusters, steps)
     tiles = overlapped = 0
     for cluster in range(n):
@@ -183,6 +183,7 @@ class _ClusterLib:
     ((64, 128, 128, 128), 66),   # the tile cell's batch: 62-63 tiles a cluster
     ((6, 48, 64, 256), 66),      # C = 256: two channel halves per pixel tile
     ((16, 64, 64, 256), 61),     # C = 256, an odd number of clusters
+    ((64, 128, 128, 64), 66),    # RCAN's batch: one 64-channel tile per pixel tile
 ])
 @pytest.mark.parametrize("nblocks,f32", [(1, True), (2, True), (6, False)])
 def test_tile_counters_follow_the_launch_geometry(shape, clusters, nblocks, f32):
@@ -208,3 +209,19 @@ def test_tile_counters_follow_the_launch_geometry(shape, clusters, nblocks, f32)
 def test_tile_counters_raise_when_no_cluster_fits():
     with pytest.raises(RuntimeError, match="no cluster fits"):
         resblock_chain.count_tiles(_ClusterLib(0), (1, 16, 16, 128), 3, True, 1)
+
+
+def test_conv_tile_counters_add_each_epilogue():
+    """count_conv_tiles (RCAN's body): each (epilogue, dtype, launches) adds
+    its launches' tiles, asking the library for that instantiation."""
+    from dsen2_tpu_torch.utils.profiling import counters
+
+    lib = _ClusterLib(66)
+    before = counters()
+    resblock_chain.count_conv_tiles(lib, (64, 128, 128, 64), 3, ((0, 0, 200), (2, 0, 200),
+                                                                  (1, 0, 11)))
+    after = counters()
+    t, o = _walk_schedule(64, 128, 128, 64, 66)
+    assert after["b1.tiles"] - before.get("b1.tiles", 0) == 411 * t
+    assert after["b1.tiles_overlapped"] - before.get("b1.tiles_overlapped", 0) == 411 * o
+    assert lib.asked == [(64, 3, 0, 0), (64, 3, 0, 2), (64, 3, 0, 1)]
