@@ -15,7 +15,9 @@ Phases, each printing its lines and its seconds:
    shipped weights: dsen2_20 and dsen2_60 on a seeded synthetic uint16
    2400 x 2400 scene at "high" and "default", each held to the port's own
    "highest" output, plus one B2-route run (patch 132, "default") and one
-   run under torch.inference_mode(); every kernel's launch count must rise;
+   run under torch.inference_mode(); every kernel's launch count must rise,
+   and a dsen2_20 "high" run must count 4 plane passes a batch (the head's
+   and the tail's x and w);
 4. the full-tile path: dsen2_20 on a seeded 10980 x 10980 uint16 tile at
    "high" and "default" through the banded engine (host output) and the
    one-shot path (device output, then one copy), each with its wall time,
@@ -27,15 +29,19 @@ Phases, each printing its lines and its seconds:
    here; the B2 route (patch 132) banded; and the demo's run_scene on a
    seeded 600^2 .mat. Both kernels' launch counts must rise; the head and
    tail convs' device time per tile at "high" and "default";
-5. training: the TF32 plane convs of ops/conv.py (forward, dgrad, wgrad) held
+5. training: the class conv's plane pass against its plain split at
+   PLANE_SHAPES, both classes (ms, bytes bound, share; bit-equal); the TF32
+   plane convs of ops/conv.py (forward, dgrad, wgrad) held
    to the same plane convs in float64 within PLANE_TOL x max|ref|; fit for DSen2 2x
    at full width (batch 128 of 32^2 crops, 2 epochs) host-fed at "high" and
    staged at "default", whose loss must fall; the warm step time, patches/s,
-   peak memory and the convs' share of one profiled step at each class; one
+   peak memory and the convs' share of one profiled step at each class, a
+   step at "high" and "default" counting 42 plane passes and 14 backward
+   calls on kept planes (conv.plane_passes, conv.planes_kept); one
    step's gradients at "high" and "default" against "highest" (E2E_TOL);
    1 + 1 resumed epochs against 2 straight; a few steps of the 6x net (96^2
    crops) and of VDSen2 2x with remat; `cli.train --smoke`. Training runs
-   plain convs, so neither kernel may launch in this phase;
+   plain convs, so neither residual-block kernel may launch in this phase;
 6. the production CLIs: whether the host has GDAL and Pillow with JPEG 2000;
    s2_supres --run_60 --output-dtype uint16 on a seeded full 10980^2 L1C
    product held in memory and read through safe_reader's GDAL seam (read,
@@ -67,8 +73,9 @@ Phases, each printing its lines and its seconds:
    64) on that shape through rcan_body against rcan_body_plain at "high"
    and "default"; its launches, by the program's counters, must follow its
    groups and blocks;
-9. one {"kernels": [...]} JSON line, B1's and B2's launches counted over
-   phases 3, 4, 6 and 7, RCAN's three kernels' over phase 8's body runs;
+9. one {"kernels": [...]} JSON line, B1's, B2's and the plane pass's
+   launches counted over phases 3, 4, 6 and 7, RCAN's three kernels' over
+   phase 8's body runs;
 10. the card's name and power limit, then {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line. Without a CUDA device,
@@ -477,6 +484,7 @@ def synthetic_scene(seed: int, h10: int):
 
 def phase_main_path(torch, api, weights, chain_mod, block_mod, card):
     from dsen2_tpu_torch.core.config import InferConfig
+    from dsen2_tpu_torch.utils import profiling
 
     models = os.path.join(HERE, "models")
     params20 = weights.load_params_npz(os.path.join(models, "s2_032_lr_1e-04.npz"))
@@ -549,10 +557,19 @@ def phase_main_path(torch, api, weights, chain_mod, block_mod, card):
     from torch.profiler import ProfilerActivity, profile
 
     cfg = InferConfig(patch_size=128, border=8, precision="high")
+    before = profiling.counters()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         runs["dsen2_20"][0](cfg)
         wall = time.perf_counter() - t0
+    # Each batch splits x and w of the head and of the tail, one plane pass each.
+    passes, patches = (profiling.counters().get(k, 0) - before.get(k, 0)
+                       for k in ("conv.plane_passes", "infer.patches"))
+    batches = -(-patches // cfg.batch_size)
+    print(f"dsen2_20 high: {passes:.0f} plane passes in {batches:.0f} batches of up to "
+          f"{cfg.batch_size} patches (counter conv.plane_passes)", flush=True)
+    check(passes == 4 * batches, "dsen2_20 high: the head and tail do not split through the "
+          "plane pass")
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     print(f"profile dsen2_20 high: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
@@ -883,6 +900,44 @@ def plane_convs_in_f32(conv_mod):
         conv_mod.tf32_for_bf16_operands = saved
 
 
+# The class conv's operands whose split phase 5 times: a DSen2 2x training
+# step's body activation and a dsen2.tile batch's tail input.
+PLANE_SHAPES = ((128, 32, 32, 128), (64, 128, 128, 128))
+
+
+def plane_pass_times(torch, conv_mod) -> dict:
+    """The plane pass (ops/conv.py::_kernel_planes) against the plain split
+    (_plain_planes: five kernels at "high", two at "default") on the NCHW
+    view of each PLANE_SHAPES operand, at both classes: 20-call means, the
+    bytes bound (v in, each plane out, f32, at the HBM rate) and the pass's
+    share of it. Fails on any bit difference. Returns {(shape, precision):
+    result} in phase 2's form."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+    for shape in PLANE_SHAPES:
+        v = conv_mod._nchw(torch.randn(shape, generator=gen, device="cuda"))
+        for prec in ("high", "default"):
+            got, want = conv_mod._kernel_planes(v, prec), conv_mod._plain_planes(v, prec)
+            for a, b in zip(got, want):
+                check((a is None and b is None) or
+                      torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                      f"plane pass {list(shape)} {prec} differs from the plain split")
+            del got, want
+            ms = time_ms(torch, lambda: conv_mod._kernel_planes(v, prec), iters=20)
+            plain = time_ms(torch, lambda: conv_mod._plain_planes(v, prec), iters=20)
+            nbytes = 4 * v.numel() * (3 if prec == "high" else 2)
+            bound = nbytes / PEAK_BYTES * 1e3
+            print(f"plane pass {list(shape)} {prec}: {ms:.4f} ms (20-call mean), plain split "
+                  f"{plain:.4f} ms; bound {bound:.4f} ms ({nbytes / v.numel():.0f} B an element "
+                  f"at {PEAK_BYTES / 1e12:.2f} TB/s), {100 * bound / ms:.1f} % of it; "
+                  "bit-equal", flush=True)
+            results[(shape, prec)] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=plain,
+                                          bound_ms=bound, bound_by="bytes")
+        del v
+    torch.cuda.empty_cache()
+    return results
+
+
 def step_times(torch, loop, cfg, params_np, batch, precision, remat=False, steps=10):
     """ms of each of `steps` warm train_steps on one device-resident batch
     (CUDA events, after 3 warm-up steps), and the peak device memory."""
@@ -927,6 +982,7 @@ def phase_training(torch, chain_mod, block_mod, card):
     from dsen2_tpu_torch.ops import conv as conv_mod
     from dsen2_tpu_torch.train import fit, loop, restore_fit_state
     from dsen2_tpu_torch.train.losses import mae
+    from dsen2_tpu_torch.utils import profiling
     from dsen2_tpu_torch.weights import params_to_numpy, params_to_torch
 
     import torch.nn.functional as F
@@ -936,6 +992,8 @@ def phase_training(torch, chain_mod, block_mod, card):
         shutil.rmtree(out_root)
     chain_mod.fused_resblock_chain.launches = 0
     block_mod.fused_resblock.launches = 0
+
+    planes = plane_pass_times(torch, conv_mod)
 
     # The class convs of the planes (forward, dgrad, wgrad) in TF32 against
     # the same plane convs in float64, at the training steps' conv shapes;
@@ -949,16 +1007,23 @@ def phase_training(torch, chain_mod, block_mod, card):
         g = torch.randn((b, hw, hw, cout), generator=gen, device="cuda")
         for prec in ("high", "default"):
             ref = plane_convs_f64(conv_mod, x, w, g, prec)
-            got = [conv_mod._forward(x, w, None, prec),
-                   *conv_mod._backward(g, x, w, prec, True, True)]
+
+            def forward():
+                return conv_mod._forward(x, w, None, prec, conv_mod._operand_planes(x, w, prec))
+
+            def both():
+                planes = conv_mod._operand_planes(x, w, prec)
+                return [conv_mod._forward(x, w, None, prec, planes),
+                        *conv_mod._backward(g, planes, prec, True, True)]
+
+            got = both()
             with plane_convs_in_f32(conv_mod):
-                f32 = [conv_mod._forward(x, w, None, prec),
-                       *conv_mod._backward(g, x, w, prec, True, True)]
+                f32 = both()
             errs = [rel_err(a, r) for a, r in zip(got, ref)]
             errs_f32 = [rel_err(a, r) for a, r in zip(f32, ref)]
-            t_tf32 = time_ms(torch, lambda: conv_mod._forward(x, w, None, prec))
+            t_tf32 = time_ms(torch, forward)
             with plane_convs_in_f32(conv_mod):
-                t_f32 = time_ms(torch, lambda: conv_mod._forward(x, w, None, prec))
+                t_f32 = time_ms(torch, forward)
             print(f"plane convs {cin}->{cout} [{b},{hw},{hw}] {prec}: max|diff|/max|ref| against "
                   f"float64: TF32 y {errs[0]:.2e} dx {errs[1]:.2e} dw {errs[2]:.2e} (limit "
                   f"{PLANE_TOL}); TF32 off y {errs_f32[0]:.2e} dx {errs_f32[1]:.2e} dw "
@@ -1004,6 +1069,20 @@ def phase_training(torch, chain_mod, block_mod, card):
              torch.as_tensor(label[:TRAIN_BATCH], device="cuda"))
     for prec in ("highest", "high", "default"):
         times, peak, step = step_times(torch, loop, cfg, params0, batch, prec)
+        if prec != "highest":
+            # A step splits x and w of its 14 convs in the forward and g in
+            # the backward, each in one plane pass, and the backward takes
+            # the forward's planes.
+            before = profiling.counters()
+            step()
+            torch.cuda.synchronize()
+            got = [profiling.counters().get(k, 0) - before.get(k, 0)
+                   for k in ("conv.plane_passes", "conv.planes_kept")]
+            print(f"train step DSen2 2x {prec}: {got[0]} plane passes, {got[1]} backward "
+                  "calls on kept planes (counters conv.plane_passes, conv.planes_kept)",
+                  flush=True)
+            check(got == [42, 14], f"train step {prec} does not split through the plane pass "
+                  "or does not keep its planes")
         ms = statistics.median(times)
         convs = conv_ms(torch, step)
         print(f"train step DSen2 2x {prec}, batch {TRAIN_BATCH} x 32^2: {ms:.3f} ms (median of "
@@ -1105,7 +1184,7 @@ def phase_training(torch, chain_mod, block_mod, card):
                 "fused_resblock": block_mod.fused_resblock.launches}
     print(f"training path launches: {launches} (training runs plain convs only)", flush=True)
     check(not any(launches.values()), "training launched a residual-block kernel")
-    return rates["default"]
+    return rates["default"], planes
 
 
 # Phase 6: the production CLIs. An L1C product's bands per resolution, in the
@@ -1601,6 +1680,7 @@ def main() -> int:
     from dsen2_tpu_torch.infer import api, engine
     from dsen2_tpu_torch import weights
     from dsen2_tpu_torch.ops import _build, resblock, resblock_chain
+    from dsen2_tpu_torch.utils import profiling
 
     card = smi()
     print(f"device: {torch.cuda.get_device_name(0)}; count {torch.cuda.device_count()}")
@@ -1621,7 +1701,11 @@ def main() -> int:
     res = phase_kernels(torch, resblock_chain, resblock)
     print(f"phase 2: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    def plane_passes():
+        return profiling.counters().get("conv.plane_passes", 0)
+
     t0 = time.perf_counter()
+    passes0 = plane_passes()
     launches = phase_main_path(torch, api, weights, resblock_chain, resblock, card)
     print(f"phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1629,22 +1713,25 @@ def main() -> int:
     full, banded_default = phase_full_tile(torch, api, engine, weights, resblock_chain,
                                            resblock, card)
     launches = {k: n + full[k] for k, n in launches.items()}
+    launches["plane_pass"] = plane_passes() - passes0
     print(f"phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    staged_rate = phase_training(torch, resblock_chain, resblock, card)
+    staged_rate, planes = phase_training(torch, resblock_chain, resblock, card)
     print(f"phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
+    passes0 = plane_passes()
     cli = phase_production(torch, api, engine, weights, resblock_chain, resblock, card,
                            staged_rate)
-    launches = {k: n + cli[k] for k, n in launches.items()}
+    launches = {k: n + cli.get(k, 0) for k, n in launches.items()}
     print(f"phase 6: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     mesh = phase_mesh(torch, api, weights, resblock_chain, resblock, card, banded_default,
                       torch.device("cuda", torch.cuda.current_device()))
-    launches = {k: n + mesh[k] for k, n in launches.items()}
+    launches = {k: n + mesh.get(k, 0) for k, n in launches.items()}
+    launches["plane_pass"] += plane_passes() - passes0
     del banded_default
     print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1675,6 +1762,11 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=rcan_src,
                             replaces="none: the JAX package has no RCAN",
                             launches=rcan_launches_n[counter], **rcan_res[(case, "high")]))
+    # The class conv's plane pass: "high" at a training step's body operand;
+    # launches in the main-path runs of phases 3, 4, 6 and 7.
+    kernels.append(dict(name="dsen2_class_planes (plane_kernel)", route="cuda",
+                        source="dsen2_tpu_torch/csrc/resblock_chain.cu", replaces="none",
+                        launches=launches["plane_pass"], **planes[(PLANE_SHAPES[0], "high")]))
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi()}")

@@ -453,6 +453,47 @@ __global__ void split_kernel(const float4* __restrict__ x, __nv_bfloat16* __rest
   }
 }
 
+// Both halves of a bf16x2 widened to f32 as PyTorch widens a bf16.
+__device__ __forceinline__ float2 bf16x2_widen(uint32_t u) {
+  const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&u);
+  return make_float2(__bfloat162float(p.x), __bfloat162float(p.y));
+}
+
+// A pair's class-conv planes as f32 values, rounded as store_split rounds:
+// hi = bf16(v) and, for bf16x3, lo = bf16(v - hi).
+template <int PASSES>
+__device__ __forceinline__ void split_pair(float a, float b, float2& hi, float2& lo) {
+  const uint32_t h = bf16x2_bits(a, b);
+  hi = bf16x2_widen(h);
+  lo = PASSES == 3 ? bf16x2_widen(bf16x2_lo_bits(a, b, h)) : make_float2(0.f, 0.f);
+}
+
+// f32 v[n] -> the class conv's planes (ops/conv.py::_planes): f32 hi[n] and,
+// for bf16x3, lo[n], each value a bf16 (its low 16 bits zero), in one pass
+// that reads v once. VEC (v, hi and lo on 16-byte boundaries): groups of 4
+// as float4, then the last n % 4 elements one by one; else all one by one.
+template <int PASSES, bool VEC>
+__global__ void plane_kernel(const float* __restrict__ v, float* __restrict__ hi,
+                             float* __restrict__ lo, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long n4 = VEC ? n / 4 : 0;
+  for (long long i = t; i < n4; i += stride) {
+    const float4 x = reinterpret_cast<const float4*>(v)[i];
+    float2 h0, l0, h1, l1;
+    split_pair<PASSES>(x.x, x.y, h0, l0);
+    split_pair<PASSES>(x.z, x.w, h1, l1);
+    reinterpret_cast<float4*>(hi)[i] = make_float4(h0.x, h0.y, h1.x, h1.y);
+    if (PASSES == 3) reinterpret_cast<float4*>(lo)[i] = make_float4(l0.x, l0.y, l1.x, l1.y);
+  }
+  for (long long i = 4 * n4 + t; i < n; i += stride) {
+    float2 h, l;
+    split_pair<PASSES>(v[i], 0.f, h, l);
+    hi[i] = h.x;
+    if (PASSES == 3) lo[i] = l.x;
+  }
+}
+
 // RCAN's channel attention, one launch per residual channel-attention block
 // (RCAB) after its conv2 (EPI_POOL), per image b:
 //   mean[c] = (the conv's per-warp sums of y, added in row order) / (H W)
@@ -1013,6 +1054,28 @@ extern "C" int dsen2_split_planes(const void* x, void* planes, long long n, int 
   if (passes == 1) split_kernel<1><<<blocks, threads, 0, s>>>(xv, pv, n4);
   else if (passes == 3) split_kernel<3><<<blocks, threads, 0, s>>>(xv, pv, n4);
   else return -1;
+  return (int)cudaGetLastError();
+}
+
+// The class conv's f32 planes of f32 v[n] (plane_kernel): hi[n] and, for
+// passes == 3, lo[n] (null for passes == 1). Any n and alignment.
+extern "C" int dsen2_class_planes(const void* v, void* hi, void* lo, long long n, int passes,
+                                  void* stream) {
+  if (n < 0 || !(passes == 1 || (passes == 3 && lo != nullptr))) return -1;
+  if (n == 0) return 0;
+  const bool vec = ((reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(hi) |
+                     reinterpret_cast<uintptr_t>(lo)) & 15) == 0;
+  const int threads = 256;
+  const long long want = ((vec ? (n + 3) / 4 : n) + threads - 1) / threads;
+  const int blocks = static_cast<int>(want < 65536 ? want : 65536);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* vv = static_cast<const float*>(v);
+  float* hv = static_cast<float*>(hi);
+  float* lv = static_cast<float*>(lo);
+  if (passes == 1 && vec) plane_kernel<1, true><<<blocks, threads, 0, s>>>(vv, hv, lv, n);
+  else if (passes == 1) plane_kernel<1, false><<<blocks, threads, 0, s>>>(vv, hv, lv, n);
+  else if (vec) plane_kernel<3, true><<<blocks, threads, 0, s>>>(vv, hv, lv, n);
+  else plane_kernel<3, false><<<blocks, threads, 0, s>>>(vv, hv, lv, n);
   return (int)cudaGetLastError();
 }
 

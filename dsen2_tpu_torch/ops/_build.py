@@ -60,6 +60,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.dsen2_split_planes.argtypes = [p, p, ll, i, p]
     lib.dsen2_split_planes.restype = i
+    lib.dsen2_class_planes.argtypes = [p, p, p, ll, i, p]
+    lib.dsen2_class_planes.restype = i
     lib.dsen2_conv3x3.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, i, i, p]
     lib.dsen2_conv3x3.restype = i
     lib.dsen2_conv3x3_clusters.argtypes = [i, i, i, i]

@@ -26,7 +26,16 @@ strays up to 1.3e-3 x max|dw| from float64, and its f32 one (TF32 off) up to
 2e-4, while over at most _WGRAD_ROWS pixels per call both stay near 5e-6
 (PERF.md §6, scripts/diagnose_wgrad_torch.py). So the wgrad runs over batch
 chunks of at most that many pixels, and the chunks' f32 results are added.
-Only x and w are kept for the backward; the planes are made again there.
+The forward keeps its planes of x and w for the backward, which then splits
+only g (x's low plane only while w's gradient is wanted; at "highest" it
+keeps x and w).
+
+On the card every f32 operand is split in one pass
+(csrc/resblock_chain.cu::plane_kernel, store_split's rounding) that reads v
+once and writes both planes, bit-equal to the plain split that CPU tensors
+take; an operand not dense in memory is copied dense first. The counters
+conv.plane_passes (launches of that pass) and conv.planes_kept (backward
+calls that took the forward's planes) count it.
 
 Tensors of another dtype than f32 (compute_dtype="bfloat16") take a plain
 conv in their own dtype at every class, as in the JAX package.
@@ -61,7 +70,7 @@ def _oihw(w: torch.Tensor) -> torch.Tensor:
     return w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
 
 
-def _planes(v: torch.Tensor, precision: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _plain_planes(v: torch.Tensor, precision: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(hi, lo) f32 tensors of bf16 values, rounded to nearest even, in v's
     layout: hi = bf16(v), lo = bf16(v - hi) at "high", None at "default"
     (ops/resblock_chain.py::split_planes computes the same planes)."""
@@ -71,20 +80,57 @@ def _planes(v: torch.Tensor, precision: str) -> Tuple[torch.Tensor, Optional[tor
     return hi, (v - hi).to(torch.bfloat16).float()
 
 
+def _dense(v: torch.Tensor) -> bool:
+    """Whether v's elements fill one block of memory, in some dimension order."""
+    return v.permute(sorted(range(v.dim()), key=v.stride, reverse=True)).is_contiguous()
+
+
+def _kernel_planes(v: torch.Tensor, precision: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """_plain_planes of a dense f32 CUDA tensor in one launch of the plane
+    pass, each plane laid out in memory as v is."""
+    from dsen2_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    hi = torch.empty_strided(v.shape, v.stride(), dtype=torch.float32, device=v.device)
+    lo = torch.empty_like(hi) if precision == "high" else None
+    with torch.cuda.device(v.device):
+        err = lib.dsen2_class_planes(
+            v.data_ptr(), hi.data_ptr(), None if lo is None else lo.data_ptr(), v.numel(),
+            1 if lo is None else 3, torch.cuda.current_stream(v.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"plane pass launch failed (error {err})")
+    profiling.count("conv.plane_passes")
+    return hi, lo
+
+
+def _planes(v: torch.Tensor, precision: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """_plain_planes(v, precision); on the card, for f32 v, from the plane
+    pass, after a dense copy of v (laid out as _plain_planes lays out its
+    planes) where v is not dense in memory."""
+    if v.is_cuda and v.dtype == torch.float32:
+        return _kernel_planes(v if _dense(v) else v.clone(), precision)
+    return _plain_planes(v, precision)
+
+
+def _operand_planes(x: torch.Tensor, w: torch.Tensor, precision: str) -> tuple:
+    """(xh, xl, wh, wl): the planes of NHWC x and HWIO w as the convs take
+    them (channels-last NCHW and OIHW)."""
+    return (*_planes(_nchw(x), precision), *_planes(_oihw(w), precision))
+
+
 def _forward(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-             precision: str) -> torch.Tensor:
-    """y = conv(x, w) + b at the class; b is added in cuDNN's epilogue."""
-    xc, wc = _nchw(x), _oihw(w)
+             precision: str, planes: Optional[tuple]) -> torch.Tensor:
+    """y = conv(x, w) + b at the class; b is added in cuDNN's epilogue.
+    `planes`: x's and w's (_operand_planes), None at "highest"."""
     if precision == "highest":
         with tf32_disabled():
-            y = F.conv2d(xc, wc, b, padding=1)
+            y = F.conv2d(_nchw(x), _oihw(w), b, padding=1)
     else:
-        xh, xl = _planes(xc, precision)
-        wh, wl = _planes(wc, precision)
+        xh, xl, wh, wl = planes
         with tf32_for_bf16_operands():
             if xl is None:
                 y = F.conv2d(xh, wh, b, padding=1)
-            elif xc.shape[1] < wc.shape[0]:
+            elif xh.shape[1] < wh.shape[0]:
                 # Fewer input than output channels (the head): one conv of the
                 # concatenated planes, [xh|xl|xh] by [wh|wh|wl], sums the three
                 # products in its accumulator, sparing two adds of the wide
@@ -93,11 +139,11 @@ def _forward(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                 # three sums of 9 x C_in (chip_smoke.PLANE_TOL).
                 y = F.conv2d(torch.cat((xh, xl, xh), 1), torch.cat((wh, wh, wl), 1), b,
                              padding=1)
-            elif xc.shape[1] > wc.shape[0]:
+            elif xh.shape[1] > wh.shape[0]:
                 # Fewer output than input channels (the tail): xh*wh and xh*wl
                 # as one conv's two halves, one pass over xh and one output
                 # tile where three narrow convs would each fill one.
-                c = wc.shape[0]
+                c = wh.shape[0]
                 both = F.conv2d(xh, torch.cat((wh, wl), 0), padding=1)
                 y = both[:, :c] + F.conv2d(xl, wh, b, padding=1) + both[:, c:]
             else:
@@ -125,30 +171,34 @@ def _wgrad(g, x, w):
     return dw
 
 
-def _backward(g, x, w, precision: str, need_x: bool, need_w: bool):
-    gc, xc, wc = _nchw(g.contiguous()), _nchw(x), _oihw(w)
+def _backward(g, saved: tuple, precision: str, need_x: bool, need_w: bool):
+    """(dx, dw) of the class conv for the output gradient g, from what the
+    forward saved: x and w at "highest", else the planes (xh, xl, wh, wl),
+    where xl may be None if w's gradient is not wanted."""
+    gc = _nchw(g.contiguous())
     if precision == "highest":
+        x, w = saved
         with tf32_disabled():
-            dx, dw = _grads(gc, xc, wc, (need_x, need_w))
+            dx, dw = _grads(gc, _nchw(x), _oihw(w), (need_x, need_w))
     else:
         gh, gl = _planes(gc, precision)
-        xh, xl = _planes(xc, precision) if need_w else (xc, xc)
-        wh, wl = _planes(wc, precision)
+        xh, xl, wh, wl = saved
         # dx = gh*'wh + gl*'wh + gh*'wl, dw = xh.gh + xh.gl + xl.gh
         terms = [(gh, xh, wh)] + ([(gl, xh, wh), (gh, xl, wl)] if gl is not None else [])
         # Fewer output than input channels (the tail) at "high": one dgrad
         # of the concatenated gradient planes [gh|gl|gh] by [wh|wh|wl]
         # stacked on the output axis sums the three terms in its
         # accumulator, sparing two adds of the input-wide dx.
-        one_dgrad = gl is not None and wc.shape[0] < xc.shape[1]
+        one_dgrad = gl is not None and wh.shape[0] < xh.shape[1]
         dx = dw = None
         with tf32_for_bf16_operands():
             if need_x and one_dgrad:
-                dx = _grads(torch.cat((gh, gl, gh), 1), xc, torch.cat((wh, wh, wl), 0),
+                dx = _grads(torch.cat((gh, gl, gh), 1), xh, torch.cat((wh, wh, wl), 0),
                             (True, False))[0]
             for gp, xp, wp in terms:
                 if need_x and not one_dgrad:
-                    d = _grads(gp, xp, wp, (True, False))[0]
+                    # The dgrad reads only the shape and layout of its input.
+                    d = _grads(gp, xh, wp, (True, False))[0]
                     dx = d if dx is None else dx + d
                 if need_w:
                     d = _wgrad(gp, xp, wp)
@@ -161,15 +211,21 @@ def _backward(g, x, w, precision: str, need_x: bool, need_w: bool):
 class _ClassConv(torch.autograd.Function):
     """The conv at its class; each forward and each backward is one span,
     conv.class. On the card autograd runs the backward on a thread of its
-    own, so the forward's context goes with it."""
+    own, so the forward's context goes with it. Applied where no gradient
+    is wanted (under no_grad), autograd drops what the forward saves."""
 
     @staticmethod
     def forward(ctx, x, w, b, precision):
-        ctx.save_for_backward(x, w)
         ctx.precision = precision
         ctx.spans = contextvars.copy_context()
         with profiling.span("conv.class"):
-            return _forward(x, w, b, precision)
+            if precision == "highest":
+                ctx.save_for_backward(x, w)
+                return _forward(x, w, b, precision, None)
+            planes = _operand_planes(x, w, precision)
+            xh, xl, wh, wl = planes
+            ctx.save_for_backward(xh, xl if ctx.needs_input_grad[1] else None, wh, wl)
+            return _forward(x, w, b, precision, planes)
 
     @staticmethod
     def backward(ctx, g):
@@ -178,11 +234,12 @@ class _ClassConv(torch.autograd.Function):
     @staticmethod
     def _backward(ctx, g):
         with profiling.span("conv.class"):
-            x, w = ctx.saved_tensors
             need_x, need_w, need_b = ctx.needs_input_grad[:3]
             dx = dw = db = None
             if need_x or need_w:
-                dx, dw = _backward(g, x, w, ctx.precision, need_x, need_w)
+                if ctx.precision != "highest":
+                    profiling.count("conv.planes_kept")
+                dx, dw = _backward(g, ctx.saved_tensors, ctx.precision, need_x, need_w)
             if need_b:
                 db = g.sum(dim=(0, 1, 2))
         return dx, dw, db, None

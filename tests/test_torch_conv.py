@@ -237,3 +237,164 @@ def test_s2net_apply_runs_every_conv_at_the_class(precision, remat):
     want = _port_net(*case, written_out, precision=precision)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+class _PlanesMadeAgain(torch.autograd.Function):
+    """The class conv keeping x and w, whose backward makes their planes
+    again from them: the reference for the planes the forward keeps."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, precision):
+        from dsen2_tpu_torch.ops import conv
+
+        ctx.precision = precision
+        ctx.save_for_backward(x, w)
+        planes = None if precision == "highest" else conv._operand_planes(x, w, precision)
+        return conv._forward(x, w, b, precision, planes)
+
+    @staticmethod
+    def backward(ctx, g):
+        from dsen2_tpu_torch.ops import conv
+
+        x, w = ctx.saved_tensors
+        prec = ctx.precision
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        saved = (x, w) if prec == "highest" else conv._operand_planes(x, w, prec)
+        dx, dw = conv._backward(g, saved, prec, need_x, need_w)
+        return dx, dw, g.sum(dim=(0, 1, 2)) if need_b else None, None
+
+
+def _kept_and_remade(case, precision, w_grad=True):
+    """y and (dx, dw, db) for the output gradient g, once from conv3x3,
+    which keeps the forward's planes, and once from _PlanesMadeAgain, with
+    conv.planes_kept's increase in each."""
+    from dsen2_tpu_torch.utils import profiling
+
+    x, wt, bias, g = case
+    runs = []
+    for apply in (lambda *a: conv3x3(*a, precision),
+                  lambda *a: _PlanesMadeAgain.apply(*a, precision)):
+        tx, tw, tb = (torch.from_numpy(a) for a in (x, wt, bias))
+        tx.requires_grad_()
+        tw.requires_grad_(w_grad)
+        tb.requires_grad_()
+        kept = profiling.counters().get("conv.planes_kept", 0)
+        y = apply(tx, tw, tb)
+        leaves = (tx, tw, tb) if w_grad else (tx, tb)
+        grads = torch.autograd.grad(y, leaves, torch.from_numpy(g))
+        runs.append(([y.detach()] + list(grads),
+                     profiling.counters().get("conv.planes_kept", 0) - kept))
+    return runs
+
+
+@pytest.mark.parametrize("cin,cout", SHAPES)
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_kept_planes_give_the_grads_of_planes_made_again(rng, cin, cout, precision):
+    """The backward that takes the forward's planes gives y, dx, dw and db
+    bit-equal to one that splits x and w again, and counts one
+    conv.planes_kept."""
+    (kept, n_kept), (remade, n_remade) = _kept_and_remade(_case(rng, cin, cout), precision)
+    for a, b in zip(kept, remade):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (n_kept, n_remade) == (1, 0)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_planes_kept_only_where_w_needs_its_gradient(rng, precision):
+    """With w frozen (at "highest" with w's gradient wanted), y, dx and db
+    are those of planes made again; at "high" and "default" the backward
+    still takes the forward's planes, at "highest" x and w."""
+    (kept, n_kept), (remade, n_remade) = _kept_and_remade(
+        _case(rng, 16, 16), precision, w_grad=precision == "highest")
+    for a, b in zip(kept, remade):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (n_kept, n_remade) == (int(precision != "highest"), 0)
+
+
+@pytest.mark.parametrize("precision,grad_mode", [
+    ("high", True), ("default", True), ("highest", True), ("high", False)])
+def test_forward_saves_the_planes_or_x_and_w(rng, precision, grad_mode):
+    """What the forward saves for the backward: at "high" x's and w's two
+    planes (x's low plane only while w's gradient is wanted), at "default"
+    their one plane, at "highest" x and w; under no_grad nothing."""
+    from dsen2_tpu_torch.ops import conv
+
+    x, wt, bias, _ = (torch.from_numpy(a) for a in _case(rng, 10, 16))
+    x.requires_grad_()
+    for w_grad in (True, False):
+        wt.requires_grad_(w_grad)
+        packed = []
+
+        def pack(t):
+            packed.append(t)
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t), \
+                torch.set_grad_enabled(grad_mode):
+            conv3x3(x, wt, bias, precision)
+        if not grad_mode:
+            want = []
+        elif precision == "highest":
+            want = [x, wt]
+        else:
+            xh, xl = conv._plain_planes(conv._nchw(x), precision)
+            want = [xh, xl if w_grad else None,
+                    *conv._plain_planes(conv._oihw(wt), precision)]
+            want = [t for t in want if t is not None]
+        assert len(packed) == len(want), w_grad
+        for a, b in zip(packed, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_s2net_grads_with_kept_planes_equal_planes_made_again(precision, remat, monkeypatch):
+    """s2net's output and parameter gradients, with every conv keeping its
+    planes for the backward, are bit-equal to those of the net whose convs
+    make them again (_PlanesMadeAgain), with and without remat; every conv
+    of the step counts one conv.planes_kept, and a no_grad forward none."""
+    from dsen2_tpu_torch.utils import profiling
+
+    case = _net_case()
+    cfg = case[0]
+    n_convs = 2 + 2 * cfg.num_layers
+
+    def kept():
+        return profiling.counters().get("conv.planes_kept", 0)
+
+    before = kept()
+    got = _port_net(*case, s2net.apply, precision=precision, remat=remat)
+    assert kept() - before == n_convs
+    before = kept()
+    with torch.no_grad():
+        s2net.apply(params_to_torch(case[1], "cpu"), [torch.from_numpy(x) for x in case[2]],
+                    cfg, precision=precision)
+    assert kept() == before
+    monkeypatch.setattr(s2net, "conv3x3", lambda x, w, b, p: _PlanesMadeAgain.apply(x, w, b, p))
+    want = _port_net(*case, s2net.apply, precision=precision, remat=remat)
+    assert kept() == before
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_plane_pass_is_not_taken_on_the_cpu(rng):
+    """CPU tensors take the plain split: conv.plane_passes does not move."""
+    from dsen2_tpu_torch.ops import conv
+    from dsen2_tpu_torch.utils import profiling
+
+    before = profiling.counters().get("conv.plane_passes", 0)
+    v = torch.from_numpy(_case(rng, 16, 16)[0])
+    for prec in ("high", "default"):
+        for a, b in zip(conv._planes(conv._nchw(v), prec), conv._plain_planes(conv._nchw(v), prec)):
+            assert (a is None and b is None) or torch.equal(a, b)
+    assert profiling.counters().get("conv.plane_passes", 0) == before
+
+
+@pytest.mark.parametrize("make,dense", [
+    (lambda t: t, True), (lambda t: t.permute(0, 3, 1, 2), True),
+    (lambda t: t[:, :, :, :3], False), (lambda t: t[:, ::2], False),
+    (lambda t: t[1:], True), (lambda t: t[..., :1].permute(0, 3, 1, 2), False)])
+def test_dense_tells_a_dense_layout(make, dense):
+    from dsen2_tpu_torch.ops import conv
+
+    assert conv._dense(make(torch.zeros(3, 4, 5, 6))) is dense

@@ -366,8 +366,9 @@ def test_tf32_plane_convs_are_exact(dev, cin, cout, hw, precision):
 
     x, w, g = _conv_case(dev, cin, cout, b=64 if hw == 32 else 16, h=hw)
     ref = chip_smoke.plane_convs_f64(conv_mod, x, w, g, precision)
-    got = [conv_mod._forward(x, w, None, precision),
-           *conv_mod._backward(g, x, w, precision, True, True)]
+    planes = conv_mod._operand_planes(x, w, precision)
+    got = [conv_mod._forward(x, w, None, precision, planes),
+           *conv_mod._backward(g, planes, precision, True, True)]
     for name, a, r in zip(("y", "dx", "dw"), got, ref):
         err = chip_smoke.rel_err(a, r)
         assert err <= chip_smoke.PLANE_TOL, (name, err)
@@ -641,3 +642,133 @@ def test_rcan_through_dsen2_20_on_card(dev, precision):
     top = np.abs(want).max()
     assert np.abs(got - want).max() <= tol * top
     assert np.abs(banded - want).max() <= tol * top
+
+
+# Special f32 values for the plane pass: signed zeros, infinities, NaN,
+# subnormals, the largest finite values (they round up to inf), ties at
+# bf16's last bit in both directions, and lo ties.
+_SPECIAL_BITS = [0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00000,
+                 0x7FA00001, 0x00000001, 0x80000001, 0x007FFFFF, 0x00408000, 0x807F8000,
+                 0x7F7FFFFF, 0xFF7FFFFF, 0x7F7F8000, 0x7F7F7FFF, 0x3F808000, 0x3F818000,
+                 0xBF808000, 0xBF818000, 0x3F800001, 0x3F80FFFF, 0x33808000, 0x3F808080]
+
+
+def _plane_input(dev, shape, seed):
+    """f32 values of `shape`: normal draws at several scales, random bit
+    patterns (every exponent, NaN payloads included) and _SPECIAL_BITS."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn(shape, generator=gen, device=dev)
+    flat = v.view(-1)
+    n = flat.numel()
+    flat[: n // 4] *= 10.0 ** torch.randint(-40, 38, (n // 4,), generator=gen, device=dev)
+    bits = torch.randint(-2**31, 2**31 - 1, (n // 4,), generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+    flat[n // 4 : n // 4 + n // 4] = bits.view(torch.float32)
+    special = torch.tensor(_SPECIAL_BITS, dtype=torch.int64).to(torch.int32).view(torch.float32)
+    k = min(n, special.numel())
+    flat[-k:] = special[:k].to(dev)
+    return v
+
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and a.stride() == b.stride() and \
+        torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape,view", [
+    ((128, 32, 32, 10), "nchw"), ((128, 32, 32, 128), "nchw"), ((128, 32, 32, 6), "nchw"),
+    ((64, 128, 128, 128), "nchw"), ((3, 3, 10, 128), "oihw"), ((3, 3, 128, 128), "oihw"),
+    ((3, 3, 128, 6), "oihw"), ((3, 3, 128, 2), "oihw"), ((7, 5, 3), "flat"), ((1, 3, 5, 7), "nchw"),
+    ((2, 11, 13, 6), "offset"), ((24,), "flat"), ((128, 32, 32, 10), "sliced"),
+    ((16, 32, 32, 128), "strided")])
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_plane_pass_bit_equal_to_plain_planes(dev, shape, view, precision):
+    """The plane pass (csrc plane_kernel) writes the planes of the plain
+    split, bit for bit, in the operand's own layout: the layouts the convs
+    take (NHWC as NCHW, HWIO as OIHW), numel % 4 != 0, a start off a 16-byte
+    boundary ("offset": the scalar path), views not dense in memory
+    ("sliced": NCHW of an NHWC channel slice, "strided": every other row),
+    which are copied dense first, and the special values above."""
+    v = _plane_input(dev, shape if view != "offset" else (shape[0] + 1, *shape[1:]), seed=3)
+    if view == "nchw":
+        v = conv_mod._nchw(v)
+    elif view == "oihw":
+        v = conv_mod._oihw(v)
+    elif view == "offset":
+        v = v.view(-1)[1 : 1 + int(np.prod(shape))].view(shape)
+        assert v.data_ptr() % 16
+    elif view == "sliced":
+        v = conv_mod._nchw(v[..., :7])
+    elif view == "strided":
+        v = conv_mod._nchw(v[:, ::2])
+    assert conv_mod._dense(v) is (view not in ("sliced", "strided"))
+    before = profiling.counters().get("conv.plane_passes", 0)
+    got = conv_mod._planes(v, precision)
+    torch.cuda.synchronize()
+    assert profiling.counters().get("conv.plane_passes", 0) == before + 1
+    want = conv_mod._plain_planes(v, precision)
+    assert _bits_equal(got[0], want[0])
+    if precision == "high":
+        assert _bits_equal(got[1], want[1])
+    else:
+        assert got[1] is None and want[1] is None
+
+
+@pytest.mark.parametrize("cin,cout", [(10, 128), (128, 128), (128, 6), (12, 128), (128, 2)])
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_conv_with_the_plane_pass_bit_equal_to_plain_planes(dev, cin, cout, precision,
+                                                            monkeypatch):
+    """conv3x3's y, dx, dw and db with the plane pass are bit-equal to
+    those with the plain split in its place (cuDNN held to deterministic
+    algorithms on both sides)."""
+    x, w, g = _conv_case(dev, cin, cout, b=8, h=32)
+    bias = torch.randn((cout,), device=dev)
+
+    def run(conv):
+        tx, tw, tb = (t.clone().requires_grad_() for t in (x, w, bias))
+        y = conv(tx, tw, tb)
+        return [y.detach(), *torch.autograd.grad(y, (tx, tw, tb), g)]
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+        passes = profiling.counters().get("conv.plane_passes", 0)
+        got = run(lambda *a: conv_mod.conv3x3(*a, precision))
+        assert profiling.counters().get("conv.plane_passes", 0) == passes + 3
+        monkeypatch.setattr(conv_mod, "_planes", conv_mod._plain_planes)
+        want = run(lambda *a: conv_mod.conv3x3(*a, precision))
+        assert profiling.counters().get("conv.plane_passes", 0) == passes + 3
+    for name, a, b in zip(("y", "dx", "dw", "db"), got, want):
+        assert torch.equal(a, b), name
+
+
+def test_train_step_counts_plane_passes_and_kept_planes(dev):
+    """One DSen2 2x train_step at "high" splits 28 operands in the forward
+    (x and w of 14 convs) and 14 gradients in the backward, each in one
+    plane pass, and its 14 backward calls take the forward's planes; a
+    no_grad forward splits 28 and keeps none."""
+    from dsen2_tpu_torch.core.config import TrainConfig, dsen2_2x
+    from dsen2_tpu_torch.train import loop
+    from dsen2_tpu_torch.train.nadam import make_optimizer
+
+    cfg = dsen2_2x()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    inputs = tuple(torch.rand((4, 32, 32, c), generator=gen, device=dev)
+                   for c in cfg.in_channels)
+    target = torch.rand((4, 32, 32, cfg.out_channels), generator=gen, device=dev)
+    params = params_to_torch(s2net.init_params(torch.Generator().manual_seed(0), cfg), dev)
+    for sub in params.values():
+        for t in sub.values():
+            t.requires_grad_()
+    opt = make_optimizer(params, TrainConfig())
+
+    def counts():
+        c = profiling.counters()
+        return c.get("conv.plane_passes", 0), c.get("conv.planes_kept", 0)
+
+    before = counts()
+    loop.train_step(params, opt, inputs, target, cfg, "high")
+    torch.cuda.synchronize()
+    after = counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (42, 14)
+    with torch.no_grad():
+        s2net.apply(params, inputs, cfg, precision="high")
+    assert counts() == (after[0] + 28, after[1])
