@@ -593,6 +593,14 @@ def tiled_scene(seed: int, h10: int, base: int):
     return tuple(np.tile(r, (reps, reps, 1)) for r in synthetic_scene(seed, base))
 
 
+def engine_d2h_bytes() -> int:
+    """Bytes the banded engine has read back in this process (the
+    engine.d2h_bytes counter): it moves only on the banded route."""
+    from dsen2_tpu_torch.utils import profiling
+
+    return profiling.counters().get("engine.d2h_bytes", 0)
+
+
 def timed(torch, fn):
     """(result, wall s, peak device bytes) of one call, host clock around
     work that ends in a synchronise."""
@@ -692,7 +700,7 @@ def ensemble_reference(rasters, run):
     return acc / np.float32(8)
 
 
-def phase_full_tile(torch, api, engine, weights, chain_mod, block_mod, card):
+def phase_full_tile(torch, api, weights, chain_mod, block_mod, card):
     """The full-tile path, the uint16 output, the ensemble and the demo."""
     import scipy.io
 
@@ -707,7 +715,6 @@ def phase_full_tile(torch, api, engine, weights, chain_mod, block_mod, card):
     mp = d10.shape[0] * d10.shape[1] / 1e6
     print(f"full tile: {d10.shape} uint16 scene built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    moved = engine.transfer_bytes
     chain_mod.fused_resblock_chain.launches = 0
     block_mod.fused_resblock.launches = 0
 
@@ -724,13 +731,13 @@ def phase_full_tile(torch, api, engine, weights, chain_mod, block_mod, card):
 
         rows = {}
         for name, fn in (("banded", banded), ("one-shot", one_shot)):
-            d2h0 = moved["d2h"]
+            d2h0 = engine_d2h_bytes()
             _, cold, _ = timed(torch, fn)
             blocks = chain_mod.fused_resblock_chain.launches
             out, warm, peak = timed(torch, fn)
             blocks = chain_mod.fused_resblock_chain.launches - blocks
             prof = device_profile(torch, fn, top=10 if name == "banded" else 0)
-            d2h = moved["d2h"] - d2h0
+            d2h = engine_d2h_bytes() - d2h0
             print(f"dsen2_20 {FULL_TILE}^2 {prec} {name}: cold {cold:.3f} s, warm {warm:.3f} s, "
                   f"{mp / warm:.2f} MP/s on {card}; peak device memory {peak / 2**30:.2f} GiB; "
                   f"{idle_text(prof)}; read back by the engine in 3 calls: {d2h} B; "
@@ -784,9 +791,9 @@ def phase_full_tile(torch, api, engine, weights, chain_mod, block_mod, card):
 
     cfg = InferConfig(patch_size=128, border=8, precision="default", output_dtype="uint16")
     timed(torch, lambda: api.dsen2_20(d10, d20, params=params20, infer_cfg=cfg))
-    d2h0 = moved["d2h"]
+    d2h0 = engine_d2h_bytes()
     u16, warm, _ = timed(torch, lambda: api.dsen2_20(d10, d20, params=params20, infer_cfg=cfg))
-    d2h = moved["d2h"] - d2h0
+    d2h = engine_d2h_bytes() - d2h0
     want = np.clip(np.round(f32_default), 0, 65535)
     diff = float(np.abs(u16.astype(np.float32) - want).max())
     print(f"dsen2_20 {FULL_TILE}^2 default uint16: warm {warm:.3f} s, {mp / warm:.2f} MP/s; "
@@ -1318,7 +1325,7 @@ def check_geotiff(read_tiff, path, sr20, sr60, xmin, ymin, what):
     return t
 
 
-def phase_production(torch, api, engine, weights, chain_mod, block_mod, card, staged_rate):
+def phase_production(torch, api, weights, chain_mod, block_mod, card, staged_rate):
     """The production entry points on the card: s2_supres on a full 10980^2
     product held in memory (through safe_reader's GDAL seam) and on a JP2
     product through the Pillow backend, create_patches into cli.train
@@ -1376,11 +1383,11 @@ def phase_production(torch, api, engine, weights, chain_mod, block_mod, card, st
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     tif = os.path.join(out_dir, "full.tif")
     argv = [name, tif, "--run_60", "--output-dtype", "uint16"]
-    d2h0 = engine.transfer_bytes["d2h"]
+    d2h0 = engine_d2h_bytes()
     with installed_gdal(gdal), timed_calls((safe_reader, "read_safe"), (api, "dsen2_60"),
                                            (api, "dsen2_20"), (writers, "write_bands")) as parts:
         wall, got = run_cli(argv)
-    d2h = engine.transfer_bytes["d2h"] - d2h0
+    d2h = engine_d2h_bytes() - d2h0
     size = os.path.getsize(tif)
     other = wall - sum(v[0] for v in parts.values())
     print(f"s2_supres {FULL_TILE}^2 --run_60 uint16 on {card}: wall {wall:.3f} s = read "
@@ -1677,7 +1684,7 @@ def main() -> int:
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
-    from dsen2_tpu_torch.infer import api, engine
+    from dsen2_tpu_torch.infer import api
     from dsen2_tpu_torch import weights
     from dsen2_tpu_torch.ops import _build, resblock, resblock_chain
     from dsen2_tpu_torch.utils import profiling
@@ -1710,7 +1717,7 @@ def main() -> int:
     print(f"phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    full, banded_default = phase_full_tile(torch, api, engine, weights, resblock_chain,
+    full, banded_default = phase_full_tile(torch, api, weights, resblock_chain,
                                            resblock, card)
     launches = {k: n + full[k] for k, n in launches.items()}
     launches["plane_pass"] = plane_passes() - passes0
@@ -1722,7 +1729,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     passes0 = plane_passes()
-    cli = phase_production(torch, api, engine, weights, resblock_chain, resblock, card,
+    cli = phase_production(torch, api, weights, resblock_chain, resblock, card,
                            staged_rate)
     launches = {k: n + cli.get(k, 0) for k, n in launches.items()}
     print(f"phase 6: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -11,7 +11,8 @@ every route (one-shot, banded, sharded, ensemble) runs either through
 sr_tile.
 
 The schedule (patch starts, output positions, chunks) is host numpy, as in
-the JAX package; the rasters, the padded images, every chunk and the mosaic
+the JAX package, and every route takes it from infer/engine.py's TilePlan
+(plan_tile); the rasters, the padded images, every chunk and the mosaic
 live on the device. Rasters of dtypes that embed exactly in float32 (uint16
 L1C data above all) cross to the device unconverted and are cast there.
 Host outputs of _BANDED_THRESHOLD_PX pixels or more go through the banded
@@ -34,7 +35,7 @@ from dsen2_tpu_torch.core.device import resolve_device, upload
 from dsen2_tpu_torch.models import rcan, s2net
 from dsen2_tpu_torch.ops.resize import upsample_patches
 from dsen2_tpu_torch.ops.tiling import (
-    PatchGrid, gather_patches, pad_symmetric, recompose_positions, write_interiors,
+    PatchGrid, gather_patches, pad_symmetric, write_interiors,
 )
 from dsen2_tpu_torch.parallel.mesh import primary_device
 from dsen2_tpu_torch.utils import profiling
@@ -63,13 +64,6 @@ def build_grids(
     )
     factors = [lr_factor // (h10 // s[0]) for s in shapes]
     return tuple(g_coarse.scaled(f) for f in factors)
-
-
-def _pad_to_multiple(arr: np.ndarray, mult: int) -> np.ndarray:
-    rem = (-arr.shape[0]) % mult
-    if rem == 0:
-        return arr
-    return np.concatenate([arr, np.repeat(arr[-1:], rem, axis=0)], axis=0)
 
 
 # Dtypes whose values embed exactly in float32: they cross host->device as
@@ -193,26 +187,6 @@ def sr_tile(
     return mosaic
 
 
-def _prepare_schedule(
-    grids: Sequence[PatchGrid], out_hw: Tuple[int, int], interior: int, batch: int
-) -> tuple[np.ndarray, np.ndarray, int]:
-    """Host-side schedule: per-chunk patch starts for every input raster plus
-    output positions, padded to whole chunks by repeating the final patch (a
-    duplicate write of identical content)."""
-    starts_per_input = [g.flat_starts() for g in grids]
-    n = starts_per_input[0].shape[0]
-    if any(s.shape[0] != n for s in starts_per_input):
-        raise ValueError("all rasters must share the patch grid")
-    pos = recompose_positions(out_hw, interior)
-    if pos.shape[0] != n:
-        raise ValueError(f"mosaic has {pos.shape[0]} positions for {n} patches")
-
-    stacked = _pad_to_multiple(np.stack(starts_per_input, axis=1), batch)
-    pos = _pad_to_multiple(pos, batch)
-    nb = stacked.shape[0] // batch
-    return stacked.reshape(nb, batch, len(grids), 2), pos.reshape(nb, batch, 2), nb
-
-
 def _validate_inputs(
     rasters: Sequence[np.ndarray], lr_factor: int, cfg: ModelConfig, infer_cfg: InferConfig
 ) -> None:
@@ -287,32 +261,28 @@ def _run_route(route, rasters, lr_factor, cfg, params, infer_cfg, device, device
 
         primary_device(mesh, device)
         return sr_tile_sharded(params, rasters, lr_factor, cfg, infer_cfg, mesh)
+    from dsen2_tpu_torch.infer.engine import plan_tile, sr_banded
+
     dev = resolve_device(device if mesh is None else primary_device(mesh, device))
     if route == "banded":
-        from dsen2_tpu_torch.infer.engine import sr_banded
-
         return sr_banded(rasters, lr_factor, cfg, params, infer_cfg, device=dev)
     with profiling.span("api.prepare"):
-        out_dtype = _output_dtype(infer_cfg.output_dtype)
-        _validate_inputs(rasters, lr_factor, cfg, infer_cfg)
-        h10, w10 = rasters[0].shape[:2]
-        grids = build_grids([r.shape for r in rasters], lr_factor, infer_cfg)
-        interior = infer_cfg.patch_size - 2 * infer_cfg.border
-        batch = min(infer_cfg.batch_size, grids[0].num_patches)
-        starts, positions, _ = _prepare_schedule(grids, (h10, w10), interior, batch)
+        plan = plan_tile(rasters, lr_factor, cfg, infer_cfg)
+        num_patches = plan.grids[0].num_patches
+        band = plan.band(0, plan.ny, min(infer_cfg.batch_size, num_patches), windowed=False)
         tparams = params_to_torch(params, dev)
-    profiling.count("infer.patches", grids[0].num_patches)
+    profiling.count("infer.patches", num_patches)
 
     with torch.no_grad():
         out = sr_tile(
             tparams,
             tuple(stage_raster(r, dev) for r in rasters),
-            starts, positions,
-            cfg=cfg, infer_cfg=infer_cfg, grids=grids, out_hw=(h10, w10),
+            band.starts, band.positions,
+            cfg=cfg, infer_cfg=infer_cfg, grids=plan.grids, out_hw=plan.out_hw,
         )
     if device_output:
         return out
-    return _host_view(out.cpu(), out_dtype)
+    return _host_view(out.cpu(), plan.out_dtype)
 
 
 def _ens_add_band(acc: torch.Tensor, stripe: torch.Tensor, idx: int, *, k: int, f: bool):
@@ -382,33 +352,29 @@ def _run_ensembled(
 
 def _ensemble(rasters, lr_factor, cfg, params, infer_cfg, device, mesh) -> np.ndarray:
     """_run_ensembled's work."""
-    from dsen2_tpu_torch.infer.engine import sr_banded
+    from dsen2_tpu_torch.infer.engine import plan_tile, sr_banded
     from dsen2_tpu_torch.ops.dihedral import dihedral_np, dihedral_static, inverse_code
 
     sharded = mesh is not None and mesh.devices.size > 1
     dev = resolve_device(device if mesh is None else primary_device(mesh, device))
-    out_dtype = _output_dtype(infer_cfg.output_dtype)
-    _validate_inputs(rasters, lr_factor, cfg, infer_cfg)
+    plan = plan_tile(rasters, lr_factor, cfg, infer_cfg)
+    h10, w10 = plan.out_hw
     f32_cfg = dataclasses.replace(infer_cfg, output_dtype="float32")
+    acc = torch.zeros((h10, w10, cfg.out_channels), dtype=torch.float32, device=dev)
     if sharded:
         from dsen2_tpu_torch.parallel import inference as pinf
 
-        h10, w10 = rasters[0].shape[:2]
-        acc = torch.zeros((h10, w10, cfg.out_channels), dtype=torch.float32, device=dev)
         for code in range(8):
             tr = [dihedral_np(np.asarray(r), code) for r in rasters]
             bands, band_meta = pinf.sr_tile_sharded(params, tr, lr_factor, cfg, f32_cfg, mesh,
                                                     device_result=True)
             acc = _ens_accumulate_bands(
                 acc, ((b.to(dev), y0, h) for b, (y0, h) in zip(bands, band_meta) if h), code)
-        return _ens_finish(acc, out_dtype)
+        return _ens_finish(acc, plan.out_dtype)
     tparams = params_to_torch(params, dev)
     # f32 on the device, exact for the compact dtypes, before any transform.
     staged = [_cast(stage_raster(r, dev), torch.float32) for r in rasters]
-    h10, w10 = staged[0].shape[:2]
     large = h10 * w10 >= _BANDED_THRESHOLD_PX
-
-    acc = torch.zeros((h10, w10, cfg.out_channels), dtype=torch.float32, device=dev)
     for code in range(8):
         tr = [dihedral_static(r, code) for r in staged]
         if large:
@@ -418,7 +384,7 @@ def _ensemble(rasters, lr_factor, cfg, params, infer_cfg, device, mesh) -> np.nd
         else:
             sr = _run(tr, lr_factor, cfg, tparams, f32_cfg, device=dev, device_output=True)
             acc += dihedral_static(sr, inverse_code[code])
-    return _ens_finish(acc, out_dtype)
+    return _ens_finish(acc, plan.out_dtype)
 
 
 def _ens_finish(acc: torch.Tensor, out_dtype: np.dtype) -> np.ndarray:

@@ -24,14 +24,19 @@ self-ensemble) keep the whole-raster path: the inputs are on the device
 already. Band boundaries need no halo exchange: every patch carries its own
 halo, and grid rows write disjoint output rows, except the final edge-flush
 row, which is merged into the last band (the reference's last-write-wins).
+
+How a tile is cut into patches, bands and chunks is decided here for every
+route (the one-shot path, this engine, the mesh's sharded tile and fleet):
+plan_tile lays out the tile once, and TilePlan.band gives each band's
+schedule.
 """
 
 from __future__ import annotations
 
-import collections.abc
 import concurrent.futures
 import contextvars
-from typing import Sequence, Tuple
+import dataclasses
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +48,6 @@ from dsen2_tpu_torch.infer.api import (
     _cast,
     _host_view,
     _output_dtype,
-    _pad_to_multiple,
     _validate_inputs,
     build_grids,
     sr_tile,
@@ -56,28 +60,9 @@ from dsen2_tpu_torch.ops.tiling import (
 from dsen2_tpu_torch.utils import profiling
 from dsen2_tpu_torch.weights import params_to_torch
 
-__all__ = ["plan_bands", "sr_banded", "band_window_rows", "transfer_bytes"]
-
-
-class _TransferBytes(collections.abc.Mapping):
-    """The counters engine.h2d_bytes and engine.d2h_bytes (utils/profiling)
-    under the keys "h2d" and "d2h"."""
-
-    def __getitem__(self, key: str) -> int:
-        if key not in ("h2d", "d2h"):
-            raise KeyError(key)
-        return profiling.counters().get(f"engine.{key}_bytes", 0)
-
-    def __iter__(self):
-        return iter(("h2d", "d2h"))
-
-    def __len__(self) -> int:
-        return 2
-
-
-# Bytes of the input windows staged ("h2d") and of the bands read back
-# ("d2h") by sr_banded, summed over calls; readers take differences.
-transfer_bytes = _TransferBytes()
+__all__ = [
+    "TilePlan", "plan_tile", "plan_bands", "band_window_rows", "stage_window", "sr_banded",
+]
 
 
 def plan_bands(ny: int, rows_per_band: int):
@@ -105,6 +90,88 @@ def band_window_rows(grid: PatchGrid, r0: int, r1: int) -> Tuple[int, int]:
     return starts[r0], starts[r1 - 1] + grid.patch
 
 
+class Band(NamedTuple):
+    """One band's schedule (TilePlan.band): output rows [y0, y0 + band_h);
+    per raster, its input window's padded rows [w0, w1) (None when not
+    windowed); and the [nb, batch, n_inputs, 2] patch starts and the
+    [nb, batch, 2] band-relative output positions, chunk by chunk."""
+
+    y0: int
+    band_h: int
+    windows: Optional[Tuple[Tuple[int, int], ...]]
+    starts: Optional[np.ndarray]
+    positions: Optional[np.ndarray]
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """How one tile is cut into patches (plan_tile), and each band's
+    schedule: every inference route asks this for its chunks."""
+
+    grids: Tuple[PatchGrid, ...]
+    out_hw: Tuple[int, int]
+    interior: int
+    out_dtype: np.dtype
+    starts: np.ndarray  # [ny, nx, n_inputs, 2] patch starts, padded-raster coordinates
+    positions: np.ndarray  # [ny, nx, 2] where each patch interior lands in the mosaic
+
+    @property
+    def ny(self) -> int:
+        return self.starts.shape[0]
+
+    @property
+    def nx(self) -> int:
+        return self.starts.shape[1]
+
+    def band(self, r0: int, r1: int, batch: int, windowed: bool) -> Band:
+        """The schedule of grid rows r0..r1-1 in chunks of `batch` patches,
+        the last chunk padded by repeating the band's final patch (a
+        duplicate write of identical content). Positions are relative to
+        the band's first output row y0. windowed: the starts are in each
+        raster's window coordinates (band_window_rows), else in the whole
+        padded raster's. An empty range (a shard with no grid rows) has
+        band_h 0 and no chunks."""
+        if r0 == r1:
+            return Band(r0 * self.interior, 0, None, None, None)
+        y0 = int(self.positions[r0, 0, 0])
+        band_h = int(self.positions[r1 - 1, 0, 0]) + self.interior - y0
+        starts = self.starts[r0:r1].reshape(-1, len(self.grids), 2)
+        positions = self.positions[r0:r1].reshape(-1, 2) - np.asarray([y0, 0], np.int32)
+        windows = None
+        if windowed:
+            windows = tuple(band_window_rows(g, r0, r1) for g in self.grids)
+            starts = starts - np.asarray([[w0, 0] for w0, _ in windows], starts.dtype)
+        n = positions.shape[0]
+        nb = -(-n // batch)
+        take = np.minimum(np.arange(nb * batch), n - 1)
+        return Band(y0, band_h, windows, starts[take].reshape(nb, batch, len(self.grids), 2),
+                    positions[take].reshape(nb, batch, 2))
+
+
+def plan_tile(
+    rasters: Sequence[np.ndarray], lr_factor: int, cfg: ModelConfig, infer_cfg: InferConfig
+) -> TilePlan:
+    """Check a call's rasters (finest-first HWC arrays or tensors) and
+    output dtype, and lay out the tile's patch grid: the one place that
+    decides where each patch is read and where its interior lands."""
+    out_dtype = _output_dtype(infer_cfg.output_dtype)
+    _validate_inputs(rasters, lr_factor, cfg, infer_cfg)
+    grids = build_grids([r.shape for r in rasters], lr_factor, infer_cfg)
+    starts = [g.flat_starts() for g in grids]
+    n = starts[0].shape[0]
+    if any(s.shape[0] != n for s in starts):
+        raise ValueError("all rasters must share the patch grid")
+    out_hw = tuple(int(d) for d in rasters[0].shape[:2])
+    interior = infer_cfg.patch_size - 2 * infer_cfg.border
+    positions = recompose_positions(out_hw, interior)
+    if positions.shape[0] != n:
+        raise ValueError(f"mosaic has {positions.shape[0]} positions for {n} patches")
+    ny, nx = len(grids[0].starts_i), len(grids[0].starts_j)
+    return TilePlan(grids, out_hw, interior, out_dtype,
+                    np.stack(starts, axis=1).reshape(ny, nx, len(grids), 2),
+                    positions.reshape(ny, nx, 2))
+
+
 def _fill_window(dst: np.ndarray, raster: np.ndarray, grid: PatchGrid, w0: int, w1: int):
     """Write np.pad(raster, symmetric halo of grid.border)[w0:w1] into dst
     ([w1 - w0, W + 2 * border, C]), copying the raster rows it covers once;
@@ -121,7 +188,7 @@ def _fill_window(dst: np.ndarray, raster: np.ndarray, grid: PatchGrid, w0: int, 
     dst[:, b + w :] = dst[:, cols[b + w :]]
 
 
-def _stage_window(
+def stage_window(
     raster: np.ndarray, grid: PatchGrid, w0: int, w1: int, device: torch.device
 ) -> torch.Tensor:
     """One band's input window on `device`, in the compact staging dtype:
@@ -184,16 +251,7 @@ def sr_banded(
     entered = profiling.now()
     with profiling.span("api.prepare"):
         dev = resolve_device(device)
-        out_dtype = _output_dtype(infer_cfg.output_dtype)
-        _validate_inputs(rasters, lr_factor, cfg, infer_cfg)
-        h10, w10 = rasters[0].shape[:2]
-        grids = build_grids([r.shape for r in rasters], lr_factor, infer_cfg)
-        interior = infer_cfg.patch_size - 2 * infer_cfg.border
-
-        starts_all = [g.flat_starts() for g in grids]
-        pos_all = recompose_positions((h10, w10), interior)
-        ny = len(grids[0].starts_i)
-        nx = pos_all.shape[0] // ny
+        plan = plan_tile(rasters, lr_factor, cfg, infer_cfg)
         tparams = params_to_torch(params, dev)
 
         # Host rasters stream per-band windows; tensors are padded once on
@@ -204,10 +262,11 @@ def sr_banded(
         else:
             compute_dtype = getattr(torch, infer_cfg.compute_dtype)
             inputs = tuple(pad_symmetric(_cast(stage_raster(r, dev), compute_dtype), g.border)
-                           for r, g in zip(rasters, grids))
-        batch = min(infer_cfg.batch_size, nx * min(rows_per_band, ny))
-        band_rows = plan_bands(ny, rows_per_band)
-    profiling.count("infer.patches", grids[0].num_patches)
+                           for r, g in zip(rasters, plan.grids))
+        batch = min(infer_cfg.batch_size, plan.nx * min(rows_per_band, plan.ny))
+        band_rows = plan_bands(plan.ny, rows_per_band)
+    profiling.count("infer.patches", plan.grids[0].num_patches)
+    h10, w10 = plan.out_hw
     last_queued = []  # the mark after the last band is queued (engine.tail)
 
     cuda = dev.type == "cuda"
@@ -216,42 +275,19 @@ def sr_banded(
     compute = torch.cuda.current_stream(dev) if cuda else None
 
     def make_band(k):
-        """Host schedule for band k; in windowed mode also fills and ships
-        its input windows (on the stager thread, on the h2d stream) and
-        returns the event the compute stream must wait on."""
+        """Band k's schedule and inputs; in windowed mode it also fills and
+        ships the input windows (on the stager thread, on the h2d stream)
+        and returns the event the compute stream must wait on."""
         with profiling.span("engine.stage", k=k):
-            return _make_band(k)
-
-    def _make_band(k):
-        r0, r1 = band_rows[k]
-        sl = slice(r0 * nx, r1 * nx)
-        band_pos = pos_all[sl].copy()
-        y_off = int(band_pos[:, 0].min())
-        band_h = int(band_pos[:, 0].max()) + interior - y_off
-        band_pos[:, 0] -= y_off
-
-        ready = None
-        if windowed:
-            wins, shifted = [], []
+            band = plan.band(*band_rows[k], batch, windowed)
+            if not windowed:
+                return band, inputs, None
             with torch.cuda.stream(h2d):  # no-op for None (CPU)
-                for r, g, s in zip(host, grids, starts_all):
-                    w0, w1 = band_window_rows(g, r0, r1)
-                    wins.append(_stage_window(r, g, w0, w1, dev))
-                    shifted.append(s[sl] - np.asarray([w0, 0], s.dtype))
-                if cuda:
-                    ready = _record(h2d)
+                wins = tuple(stage_window(r, g, w0, w1, dev)
+                             for r, g, (w0, w1) in zip(host, plan.grids, band.windows))
+                ready = _record(h2d) if cuda else None
             profiling.count("engine.h2d_bytes", sum(w.nbytes for w in wins))
-            band_inputs = tuple(wins)
-            stacked = np.stack(shifted, axis=1)
-        else:
-            band_inputs = inputs
-            stacked = np.stack([s[sl] for s in starts_all], axis=1)
-
-        stacked = _pad_to_multiple(stacked, batch)
-        bpos = _pad_to_multiple(band_pos, batch)
-        nb = stacked.shape[0] // batch
-        return (band_inputs, stacked.reshape(nb, batch, len(grids), 2),
-                bpos.reshape(nb, batch, 2), y_off, band_h, ready)
+            return band, wins, ready
 
     def start_readback(band: torch.Tensor):
         """Queue band's copy into pinned host memory on the d2h stream,
@@ -279,18 +315,18 @@ def sr_banded(
                         pending.append(pool.submit(contextvars.copy_context().run, make_band,
                                                    k + len(pending)))
                     with profiling.span("engine.wait_stage", k=k):
-                        band_inputs, st, ps, y_off, band_h, ready = pending.pop(0).result()
+                        band, band_inputs, ready = pending.pop(0).result()
                 else:
-                    band_inputs, st, ps, y_off, band_h, ready = make_band(k)
+                    band, band_inputs, ready = make_band(k)
                 with profiling.span("engine.band", k=k):
                     if ready is not None:
                         compute.wait_event(ready)
                         for w in band_inputs:
                             w.record_stream(compute)
                     with torch.no_grad():
-                        band = sr_tile(tparams, band_inputs, st, ps, cfg=cfg,
-                                       infer_cfg=infer_cfg, grids=grids, out_hw=(band_h, w10),
-                                       pad_inputs=False)
+                        out = sr_tile(tparams, band_inputs, band.starts, band.positions,
+                                      cfg=cfg, infer_cfg=infer_cfg, grids=plan.grids,
+                                      out_hw=(band.band_h, w10), pad_inputs=False)
                 profiling.count("engine.bands")
                 if k == 0:
                     profiling.record("engine.fill", entered)
@@ -298,7 +334,7 @@ def sr_banded(
                     last_queued.append(profiling.now())
                 if prev is not None:
                     yield prev
-                prev = (emit(band), y_off, band_h)
+                prev = (emit(out), band.y0, band.band_h)
             if prev is not None:
                 yield prev
         finally:
@@ -308,7 +344,7 @@ def sr_banded(
 
     if device_output:
         return band_iter(lambda band: band)
-    out = np.empty((h10, w10, cfg.out_channels), out_dtype)
+    mosaic = np.empty((h10, w10, cfg.out_channels), plan.out_dtype)
 
     def drain(got, y0, band_h):
         """Wait for band's copy, then move its rows into the output."""
@@ -317,8 +353,8 @@ def sr_banded(
                 pinned, copied = got
                 copied.synchronize()
                 got = pinned
-            rows = _host_view(got, out_dtype)
-            out[y0 : y0 + band_h] = rows
+            rows = _host_view(got, plan.out_dtype)
+            mosaic[y0 : y0 + band_h] = rows
         return rows.nbytes
 
     # The rows move on a worker thread (numpy copies without the GIL), so
@@ -336,4 +372,4 @@ def sr_banded(
             with profiling.span("engine.wait_drain"):
                 profiling.count("engine.d2h_bytes", pending.result())
     profiling.record("engine.tail", last_queued[0] if last_queued else None)
-    return out
+    return mosaic

@@ -33,11 +33,8 @@ import numpy as np
 import torch
 
 from dsen2_tpu_torch.core.config import InferConfig, ModelConfig, dsen2_2x, dsen2_6x
-from dsen2_tpu_torch.infer.api import (
-    _host_view, _output_dtype, _pad_to_multiple, _prepare_schedule, _validate_inputs,
-    build_grids, sr_tile, stage_raster, staging_dtype,
-)
-from dsen2_tpu_torch.ops.tiling import recompose_positions
+from dsen2_tpu_torch.infer.api import _host_view, sr_tile, stage_raster
+from dsen2_tpu_torch.infer.engine import plan_tile, stage_window
 from dsen2_tpu_torch.parallel.mesh import Mesh
 from dsen2_tpu_torch.utils import profiling
 from dsen2_tpu_torch.weights import params_to_torch
@@ -105,14 +102,11 @@ def sr_tiles_sharded(
     ndev = len(devs)
     if n % ndev:
         raise ValueError(f"tile batch {n} must divide the data axis {ndev}")
-    out_dtype = _output_dtype(infer_cfg.output_dtype)
-    h10, w10 = tile_inputs[0].shape[1:3]
-    grids = build_grids([r.shape[1:] for r in tile_inputs], lr_factor, infer_cfg)
-    interior = infer_cfg.patch_size - 2 * infer_cfg.border
-    batch = min(infer_cfg.batch_size, grids[0].num_patches)
-    starts, positions, _ = _prepare_schedule(grids, (h10, w10), interior, batch)
+    plan = plan_tile([t[0] for t in tile_inputs], lr_factor, cfg, infer_cfg)
+    num_patches = plan.grids[0].num_patches
+    band = plan.band(0, plan.ny, min(infer_cfg.batch_size, num_patches), windowed=False)
     tparams = _params_on(params, devs)
-    profiling.count("infer.patches", n * grids[0].num_patches)
+    profiling.count("infer.patches", n * num_patches)
     per = n // ndev
 
     def shard(s: int) -> List[torch.Tensor]:
@@ -121,13 +115,13 @@ def sr_tiles_sharded(
             return [
                 sr_tile(tparams[dev], tuple(stage_raster(np.asarray(t[j]), dev)
                                             for t in tile_inputs),
-                        starts, positions, cfg=cfg, infer_cfg=infer_cfg, grids=grids,
-                        out_hw=(h10, w10))
+                        band.starts, band.positions, cfg=cfg, infer_cfg=infer_cfg,
+                        grids=plan.grids, out_hw=plan.out_hw)
                 for j in range(s * per, (s + 1) * per)
             ]
 
     results = run_on_shards(devs, shard)
-    return np.stack([_host_view(t.cpu(), out_dtype) for tiles in results for t in tiles])
+    return np.stack([_host_view(t.cpu(), plan.out_dtype) for tiles in results for t in tiles])
 
 
 def plan_shard_bands(ny: int, interior: int, out_h: int, ndev: int) -> List[Tuple[int, int]]:
@@ -164,7 +158,7 @@ def sr_tile_sharded(
 ):
     """Super-resolve ONE tile with its patch grid sharded over the mesh
     'data' axis: shard s computes grid-row band s of the output mosaic from
-    only its own input window (the halo padded on the host). Returns the
+    only its own input window (engine.stage_window). Returns the
     [H, W, C_out] host mosaic in infer_cfg.output_dtype.
 
     device_result=True instead returns (bands, band_meta) with no host
@@ -173,81 +167,41 @@ def sr_tile_sharded(
     device (the mosaic dtype of sr_tile), or None for an empty shard
     (band_h 0), which computes nothing. One tensor cannot span devices, so
     the bands stay a list; the mesh ensemble folds them into one sum."""
-    _validate_inputs(rasters, lr_factor, cfg, infer_cfg)
+    plan = plan_tile(rasters, lr_factor, cfg, infer_cfg)
     devs = mesh.data_devices
-    ndev = len(devs)
-    out_dtype = _output_dtype(infer_cfg.output_dtype)
-    h10, w10 = rasters[0].shape[:2]
-    grids = build_grids([r.shape for r in rasters], lr_factor, infer_cfg)
-    interior = infer_cfg.patch_size - 2 * infer_cfg.border
-
-    profiling.count("infer.patches", grids[0].num_patches)
-    ny = len(grids[0].starts_i)
-    nx = len(grids[0].starts_j)
-    bands = plan_shard_bands(ny, interior, h10, ndev)
-    kmax = max(r1 - r0 for r0, r1 in bands)
+    h10, w10 = plan.out_hw
+    profiling.count("infer.patches", plan.grids[0].num_patches)
+    rows = plan_shard_bands(plan.ny, plan.interior, h10, len(devs))
     # JAX's sharded program pads every band to kmax rows; its chunk batch
     # follows from that, and the port keeps it (see the module docstring).
-    batch = min(infer_cfg.batch_size, kmax * nx)
-
-    # Per-row schedules on the full grid (padded coords / output coords).
-    starts_rows = [g.flat_starts().reshape(ny, nx, 2) for g in grids]
-    pos_rows = recompose_positions((h10, w10), interior).reshape(ny, nx, 2)
-
-    # Host-pad each raster once; each shard ships only its window. Compact
-    # dtypes (the uint16 L1C source) stay unconverted and are cast on the
-    # device inside sr_tile.
-    padded = [
-        np.pad(np.asarray(r, staging_dtype(np.asarray(r).dtype)),
-               ((g.border, g.border), (g.border, g.border), (0, 0)), mode="symmetric")
-        for r, g in zip(rasters, grids)
-    ]
-
-    band_meta: List[Tuple[int, int]] = []
-    plans: List[Optional[tuple]] = []  # per shard: (windows, starts, positions)
-    for r0, r1 in bands:
-        y0 = r0 * interior
-        if r0 == r1:
-            band_meta.append((y0, 0))
-            plans.append(None)
-            continue
-        band_h = (h10 - y0) if r1 == ny else (r1 - r0) * interior
-        band_meta.append((y0, band_h))
-        pos = pos_rows[r0:r1].reshape(-1, 2).copy()
-        pos[:, 0] -= y0
-        windows, per_input = [], []
-        for srows, g, pad in zip(starts_rows, grids, padded):
-            w0 = int(srows[r0, 0, 0])
-            w1 = int(srows[r1 - 1, 0, 0]) + g.patch
-            st = srows[r0:r1].reshape(-1, 2).copy()
-            st[:, 0] -= w0
-            per_input.append(st)
-            windows.append(pad[w0:w1])
-        st = _pad_to_multiple(np.stack(per_input, axis=1), batch)  # [n, n_in, 2]
-        pos = _pad_to_multiple(pos, batch)
-        nb = st.shape[0] // batch
-        plans.append((windows, st.reshape(nb, batch, len(grids), 2),
-                      pos.reshape(nb, batch, 2), (band_h, w10)))
-
-    tparams = _params_on(params, [d for d, p in zip(devs, plans) if p is not None])
+    kmax = max(r1 - r0 for r0, r1 in rows)
+    batch = min(infer_cfg.batch_size, kmax * plan.nx)
+    bands = [plan.band(r0, r1, batch, windowed=True) for r0, r1 in rows]
+    host = [np.asarray(r) for r in rasters]
+    tparams = _params_on(params, [d for d, b in zip(devs, bands) if b.band_h])
 
     def shard(s: int) -> List[Optional[torch.Tensor]]:
-        if plans[s] is None:
+        band, dev = bands[s], devs[s]
+        if not band.band_h:
             return [None]
-        windows, st, pos, band_hw = plans[s]
-        dev = devs[s]
+        # Each shard ships only its window, staged as the banded engine
+        # stages a band's: compact dtypes (the uint16 L1C source) cross
+        # unconverted and are cast on the device inside sr_tile.
+        windows = tuple(stage_window(r, g, w0, w1, dev)
+                        for r, g, (w0, w1) in zip(host, plan.grids, band.windows))
         with torch.no_grad():
-            return [sr_tile(tparams[dev], tuple(stage_raster(w, dev) for w in windows),
-                            st, pos, cfg=cfg, infer_cfg=infer_cfg, grids=grids,
-                            out_hw=band_hw, pad_inputs=False)]
+            return [sr_tile(tparams[dev], windows, band.starts, band.positions, cfg=cfg,
+                            infer_cfg=infer_cfg, grids=plan.grids, out_hw=(band.band_h, w10),
+                            pad_inputs=False)]
 
     results = [r[0] for r in run_on_shards(devs, shard)]
+    band_meta = [(b.y0, b.band_h) for b in bands]
     if device_result:
         return results, band_meta
-    out = np.empty((h10, w10, cfg.out_channels), out_dtype)
+    out = np.empty((h10, w10, cfg.out_channels), plan.out_dtype)
     for band, (y0, band_h) in zip(results, band_meta):
         if band_h:
-            out[y0 : y0 + band_h] = _host_view(band.cpu(), out_dtype)
+            out[y0 : y0 + band_h] = _host_view(band.cpu(), plan.out_dtype)
     return out
 
 

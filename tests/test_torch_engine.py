@@ -16,6 +16,8 @@ from dsen2_tpu_torch.core.config import InferConfig, ModelConfig
 from dsen2_tpu_torch.infer import api, engine
 from dsen2_tpu_torch.models import s2net
 from dsen2_tpu_torch.ops.tiling import PatchGrid
+from dsen2_tpu_torch.parallel.inference import plan_shard_bands
+from dsen2_tpu_torch.utils.profiling import counters
 
 CFG = ModelConfig(in_channels=(4, 6), num_layers=2, feature_size=16)
 JCFG = JModelConfig(in_channels=(4, 6), num_layers=2, feature_size=16)
@@ -58,6 +60,62 @@ def test_plan_bands_rejects_zero_rows():
         engine.plan_bands(4, 0)
 
 
+def _grid_case(head, flush):
+    """Zero rasters, lr_factor, ModelConfig and InferConfig of a 2x or 6x
+    tile whose grid does (flush) or does not end in an edge-flush row."""
+    if head == "2x":
+        h, w, lr, chans, patch, border = (152 if flush else 144), 72, 2, (4, 6), 32, 4
+    else:
+        h, w, lr, chans, patch, border = (228 if flush else 216), 108, 6, (4, 6, 2), 48, 6
+    downs = (1, 2, 6)[: len(chans)]
+    rasters = [np.zeros((h // d, w // d, c), np.uint16) for d, c in zip(downs, chans)]
+    icfg = InferConfig(patch_size=patch, border=border, batch_size=5)
+    return rasters, lr, ModelConfig(in_channels=chans, num_layers=2, feature_size=16), icfg
+
+
+@pytest.mark.parametrize("planner,k", [("plan_bands", 1), ("plan_bands", 2), ("plan_bands", 16),
+                                       ("plan_shard_bands", 1), ("plan_shard_bands", 3),
+                                       ("plan_shard_bands", 8)])
+@pytest.mark.parametrize("flush", [False, True])
+@pytest.mark.parametrize("head", ["2x", "6x"])
+def test_bands_tile_the_one_shot_schedule(head, flush, planner, k):
+    """The bands of the engine's and the mesh's row splits, each put back at
+    its y0 and its windows' w0, give the whole tile's schedule in order;
+    each band's output rows end where the next band's begin, and the last
+    band's at the tile's end."""
+    rasters, lr, cfg, icfg = _grid_case(head, flush)
+    plan = engine.plan_tile(rasters, lr, cfg, icfg)
+    assert (plan.ny * plan.interior > plan.out_hw[0]) == flush
+    n_in, batch = len(plan.grids), icfg.batch_size
+    whole = plan.band(0, plan.ny, batch, windowed=False)
+    want_starts = whole.starts.reshape(-1, n_in, 2)[: plan.ny * plan.nx]
+    want_pos = whole.positions.reshape(-1, 2)[: plan.ny * plan.nx]
+    if planner == "plan_bands":
+        rows = engine.plan_bands(plan.ny, k)
+    else:
+        rows = plan_shard_bands(plan.ny, plan.interior, plan.out_hw[0], k)
+    got_starts, got_pos, y_end = [], [], 0
+    for r0, r1 in rows:
+        band = plan.band(r0, r1, batch, windowed=True)
+        if r0 == r1:
+            assert band.band_h == 0 and band.starts is None
+            continue
+        m = (r1 - r0) * plan.nx
+        assert band.starts.shape == (-(-m // batch), batch, n_in, 2)
+        st, ps = band.starts.reshape(-1, n_in, 2), band.positions.reshape(-1, 2)
+        assert (st[m:] == st[m - 1]).all() and (ps[m:] == ps[m - 1]).all()
+        assert band.windows == tuple(engine.band_window_rows(g, r0, r1) for g in plan.grids)
+        for i, (g, (w0, w1)) in enumerate(zip(plan.grids, band.windows)):
+            assert st[:m, i, 0].min() == 0 and st[:m, i, 0].max() + g.patch == w1 - w0
+        got_starts.append(st[:m] + np.asarray([[w0, 0] for w0, _ in band.windows]))
+        got_pos.append(ps[:m] + np.asarray([band.y0, 0]))
+        assert band.y0 == y_end
+        y_end = band.y0 + band.band_h
+    assert y_end == plan.out_hw[0]
+    np.testing.assert_array_equal(np.concatenate(got_starts), want_starts)
+    np.testing.assert_array_equal(np.concatenate(got_pos), want_pos)
+
+
 @pytest.mark.parametrize("dtype", [np.uint16, np.float64])
 @pytest.mark.parametrize("band", ["top", "interior", "bottom", "whole"])
 def test_stage_window_is_the_padded_slice(dtype, band):
@@ -68,7 +126,7 @@ def test_stage_window_is_the_padded_slice(dtype, band):
     r0, r1 = {"top": (0, 2), "interior": (1, 3), "bottom": (ny - 2, ny),
               "whole": (0, ny)}[band]
     w0, w1 = engine.band_window_rows(grid, r0, r1)
-    got = engine._stage_window(raster, grid, w0, w1, torch.device("cpu"))
+    got = engine.stage_window(raster, grid, w0, w1, torch.device("cpu"))
     want = np.pad(raster, ((3, 3), (3, 3), (0, 0)), mode="symmetric")[w0:w1]
     want = want.astype(api.staging_dtype(dtype))
     assert got.numpy().dtype == want.dtype
@@ -99,10 +157,10 @@ def test_tensor_rasters_take_the_whole_raster_path():
     params = _params(2)
     host = engine.sr_banded([d10, d20], 2, CFG, params, InferConfig(**KW), rows_per_band=2,
                             device="cpu")
-    before = dict(engine.transfer_bytes)
+    before = counters().get("engine.h2d_bytes", 0)
     tens = engine.sr_banded([torch.from_numpy(d10), torch.from_numpy(d20)], 2, CFG, params,
                             InferConfig(**KW), rows_per_band=2, device="cpu")
-    assert engine.transfer_bytes["h2d"] == before["h2d"]  # no window staged
+    assert counters().get("engine.h2d_bytes", 0) == before  # no window staged
     np.testing.assert_array_equal(tens, host)
 
 
@@ -110,9 +168,10 @@ def test_transfer_bytes_count_windows_and_bands():
     d10, d20 = _scene(13, 96, 72, np.uint16)
     params = _params(3)
     icfg = InferConfig(**KW, output_dtype="uint16")
-    before = dict(engine.transfer_bytes)
+    before = counters()
     out = engine.sr_banded([d10, d20], 2, CFG, params, icfg, rows_per_band=1, device="cpu")
-    moved = {k: engine.transfer_bytes[k] - before[k] for k in before}
+    moved = {k: counters()[f"engine.{k}_bytes"] - before.get(f"engine.{k}_bytes", 0)
+             for k in ("h2d", "d2h")}
     assert moved["d2h"] == out.nbytes == 96 * 72 * 6 * 2
     grids = api.build_grids([d10.shape, d20.shape], 2, icfg)
     want_h2d = sum(
@@ -156,7 +215,7 @@ def test_stager_exception_propagates(monkeypatch):
         calls.append(1)
         raise RuntimeError("staging failed")
 
-    monkeypatch.setattr(engine, "_stage_window", boom)
+    monkeypatch.setattr(engine, "stage_window", boom)
     d10, d20 = _scene(15, 160, 96)
     with pytest.raises(RuntimeError, match="staging failed"):
         engine.sr_banded([d10, d20], 2, CFG, _params(5), InferConfig(**KW), rows_per_band=2,
@@ -189,8 +248,10 @@ def test_pad_inputs_false_takes_prepadded_windows():
     d10, d20 = _scene(17, 96, 72)
     params = _params(7)
     icfg = InferConfig(**KW)
-    grids = api.build_grids([d10.shape, d20.shape], 2, icfg)
-    starts, pos, _ = api._prepare_schedule(grids, (96, 72), 24, 4)
+    plan = engine.plan_tile([d10, d20], 2, CFG, icfg)
+    grids = plan.grids
+    band = plan.band(0, plan.ny, 4, windowed=False)
+    starts, pos = band.starts, band.positions
     tparams = api.params_to_torch(params, "cpu")
     common = dict(cfg=CFG, infer_cfg=icfg, grids=grids, out_hw=(96, 72))
     bare = api.sr_tile(tparams, (torch.from_numpy(d10), torch.from_numpy(d20)), starts, pos,

@@ -16,7 +16,7 @@ from dsen2_tpu.weights import load_params_npz as j_load_npz
 from dsen2_tpu.weights import save_params_npz as j_save_npz
 from dsen2_tpu_torch import dsen2_20, dsen2_60
 from dsen2_tpu_torch.core.config import InferConfig, dsen2_2x, dsen2_6x
-from dsen2_tpu_torch.infer import api
+from dsen2_tpu_torch.infer import api, engine
 from dsen2_tpu_torch.models import s2net
 from dsen2_tpu_torch import weights
 
@@ -110,12 +110,15 @@ def test_schedule_and_grids_match(rng):
         tg, jg = api.build_grids(shapes, 2, cfg), japi.build_grids(shapes, 2, jcfg)
         assert [g.__dict__ for g in tg] == [g.__dict__ for g in jg]
         interior = cfg.patch_size - 2 * cfg.border
+        plan = engine.plan_tile([np.zeros(s, np.float32) for s in shapes], 2, dsen2_2x(), cfg)
+        assert [g.__dict__ for g in plan.grids] == [g.__dict__ for g in jg]
         for batch in (1, 3, 64):
-            a = api._prepare_schedule(tg, (120, 108), interior, batch)
+            a = plan.band(0, plan.ny, batch, windowed=False)
             b = japi._prepare_schedule(jg, (120, 108), interior, batch)
-            np.testing.assert_array_equal(a[0], b[0])
-            np.testing.assert_array_equal(a[1], b[1])
-            assert a[2] == b[2]
+            np.testing.assert_array_equal(a.starts, b[0])
+            np.testing.assert_array_equal(a.positions, b[1])
+            assert a.starts.shape[0] == a.positions.shape[0] == b[2]
+            assert (a.y0, a.band_h, a.windows) == (0, 120, None)
 
 
 def test_staging_keeps_compact_dtypes():

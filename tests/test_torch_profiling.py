@@ -118,7 +118,7 @@ def test_engine_spans_follow_its_threads(monkeypatch):
     grids = api.build_grids([d10.shape, d20.shape], 2, ICFG)
     nbands = len(engine.plan_bands(len(grids[0].starts_i), 1))
     assert nbands > 2
-    before, moved = counters(), dict(engine.transfer_bytes)
+    before = counters()
     with spans_on():
         out = _sr20(d10, d20)
     after = counters()
@@ -150,10 +150,8 @@ def test_engine_spans_follow_its_threads(monkeypatch):
 
     assert after["infer.patches"] - before.get("infer.patches", 0) == grids[0].num_patches
     assert after["engine.bands"] - before.get("engine.bands", 0) == nbands
-    assert engine.transfer_bytes["d2h"] - moved["d2h"] == out.nbytes
-    assert engine.transfer_bytes["h2d"] > moved["h2d"]
-    assert dict(engine.transfer_bytes) == {"h2d": after["engine.h2d_bytes"],
-                                           "d2h": after["engine.d2h_bytes"]}
+    assert after["engine.d2h_bytes"] - before.get("engine.d2h_bytes", 0) == out.nbytes
+    assert after["engine.h2d_bytes"] > before.get("engine.h2d_bytes", 0)
 
 
 def test_one_shot_route_counts_patches():
