@@ -11,13 +11,17 @@ Phases, each printing its lines and its seconds:
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes: error against a stated limit, kernel / plain / library
    times, the bound, the achieved bf16 TFLOP/s and the share of the bound;
+   DSen2's head and tail kernels at dsen2_20's and dsen2_60's batches (F =
+   128) and at VDSen2 2x's (F = 256) in both classes against the plane products in float64 (PLANE_TOL), the
+   head's planes bit-equal to split_planes of its x, with times, bytes
+   bound, share, the plain version's time and the class conv's;
 3. the main path at full DSen2 width (6 blocks x 128 features) with the
    shipped weights: dsen2_20 and dsen2_60 on a seeded synthetic uint16
    2400 x 2400 scene at "high" and "default", each held to the port's own
    "highest" output, plus one B2-route run (patch 132, "default") and one
    run under torch.inference_mode(); every kernel's launch count must rise,
-   and a dsen2_20 "high" run must count 4 plane passes a batch (the head's
-   and the tail's x and w);
+   and a dsen2_20 "high" run must count one head and one tail launch a batch
+   and no plane pass;
 4. the full-tile path: dsen2_20 on a seeded 10980 x 10980 uint16 tile at
    "high" and "default" through the banded engine (host output) and the
    one-shot path (device output, then one copy), each with its wall time,
@@ -28,7 +32,8 @@ Phases, each printing its lines and its seconds:
    (whole-tile route) against the mean of the 8 transformed runs computed
    here; the B2 route (patch 132) banded; and the demo's run_scene on a
    seeded 600^2 .mat. Both kernels' launch counts must rise; the head and
-   tail convs' device time per tile at "high" and "default";
+   tail kernels' device time per tile at "high" and "default", with no
+   cuDNN conv;
 5. training: the class conv's plane pass against its plain split at
    PLANE_SHAPES, both classes (ms, bytes bound, share; bit-equal); the TF32
    plane convs of ops/conv.py (forward, dgrad, wgrad) held
@@ -73,9 +78,10 @@ Phases, each printing its lines and its seconds:
    64) on that shape through rcan_body against rcan_body_plain at "high"
    and "default"; its launches, by the program's counters, must follow its
    groups and blocks;
-9. one {"kernels": [...]} JSON line, B1's, B2's and the plane pass's
-   launches counted over phases 3, 4, 6 and 7, RCAN's three kernels' over
-   phase 8's body runs;
+9. one {"kernels": [...]} JSON line, B1's, B2's, the head's and the tail's
+   launches counted over phases 3, 4, 6 and 7, the plane pass's over phases
+   3 to 7 (phase 5's training), RCAN's three kernels' over phase 8's body
+   runs;
 10. the card's name and power limit, then {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line. Without a CUDA device,
@@ -262,6 +268,109 @@ def phase_kernels(torch, chain_mod, block_mod):
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=bms, bound_by=by)
         del x, w1, w2, b1, b2
+        torch.cuda.empty_cache()
+    return results
+
+
+# DSen2's head and tail kernels (ops/head_tail.py) at the main path's
+# batches: (name, [B, H, W], input channels, output channels, F) of dsen2_20
+# and dsen2_60 at F = 128, and of VDSen2's 2x net (the vdsen2.roi cell) at
+# F = 256.
+EDGE_CASES = (("2x", (64, 128, 128), (4, 6), 6, 128), ("6x", (64, 192, 192), (4, 6, 2), 2, 128),
+              ("vd2x", (64, 128, 128), (4, 6), 6, 256))
+
+
+def edge_work(kind, shape, cin, cout, f, passes):
+    """(flop, bytes) the head or the tail must do for one call: the class's
+    bf16 products; the inputs read once and x (and at the head its planes,
+    which B1 reads) written once, or x read once and the residual and the
+    output moved once, plus the f32 weights, at each buffer's dtype."""
+    px = int(np.prod(shape))
+    if kind == "head":
+        flop = 2 * px * 9 * sum(cin) * f * passes
+        nbytes = px * (4 * sum(cin) + 4 * f + 2 * f * (2 if passes == 3 else 1))
+        return flop, nbytes + 4 * (9 * sum(cin) * f + f)
+    flop = 2 * px * 9 * f * cout * passes
+    return flop, px * (4 * f + 2 * 4 * cout) + 4 * (9 * f * cout + cout)
+
+
+def phase_edges(torch):
+    """The head and tail kernels against the class's plane products in
+    float64 (within PLANE_TOL x max|ref|; the head's planes bit-equal to
+    split_planes of its x) at EDGE_CASES in both classes: 20-call means, the
+    bound (edge_work), the share, the plain version's time (head_plain with
+    the planes, tail_plain) and the class conv's alone (cuDNN's TF32 plane
+    convs, ops/conv.py::conv3x3) as the library yardstick. Returns {(kind,
+    case, precision): result} in phase 2's form."""
+    import torch.nn.functional as F
+
+    from dsen2_tpu_torch.ops import head_tail
+    from dsen2_tpu_torch.ops.conv import conv3x3
+    from dsen2_tpu_torch.ops.resblock_chain import split_planes
+
+    def ref(x, w, b, passes):
+        xp, wp = split_planes(x, passes).double(), split_planes(w, passes).double()
+
+        def conv(a, k):
+            y = F.conv2d(a.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), padding=1)
+            return y.permute(0, 2, 3, 1)
+
+        y = conv(xp[0], wp[0])
+        if passes == 3:
+            y = y + conv(xp[1], wp[0]) + conv(xp[0], wp[1])
+        return y + b.double()
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    results = {}
+    for case, shape, cin, cout, f in EDGE_CASES:
+        inputs = [torch.rand((*shape, c), generator=gen, device="cuda") for c in cin]
+        cat = torch.cat(inputs, dim=-1)
+        hw = torch.randn((3, 3, sum(cin), f), generator=gen, device="cuda") * (
+            9 * sum(cin)) ** -0.5
+        hb = torch.randn((f,), generator=gen, device="cuda") * 0.1
+        tw = torch.randn((3, 3, f, cout), generator=gen, device="cuda") * (9 * f) ** -0.5
+        tb = torch.randn((cout,), generator=gen, device="cuda") * 0.1
+        for prec in ("high", "default"):
+            passes = 3 if prec == "high" else 1
+            x, planes = head_tail.head(inputs, hw, hb, prec, planes=True)
+            torch.cuda.synchronize()
+            want = ref(cat, hw, hb, passes).clamp_min(0)
+            errs = {"head": ((x.double() - want).abs().max() / want.abs().max()).item()}
+            del want
+            check(torch.equal(planes.view(torch.int16), split_planes(x, passes).view(torch.int16)),
+                  f"head {case} {prec}: its planes differ from split_planes of its x")
+            y = head_tail.tail(x, tw, tb, inputs[-1], prec)
+            torch.cuda.synchronize()
+            want = ref(x, tw, tb, passes) + inputs[-1].double()
+            errs["tail"] = ((y.double() - want).abs().max() / want.abs().max()).item()
+            del want, y, planes
+            calls = {
+                "head": (lambda: head_tail.head(inputs, hw, hb, prec, planes=True),
+                         lambda: head_tail.head_plain(inputs, hw, hb, prec, planes=True),
+                         lambda: conv3x3(cat, hw, hb, prec)),
+                "tail": (lambda: head_tail.tail(x, tw, tb, inputs[-1], prec),
+                         lambda: head_tail.tail_plain(x, tw, tb, inputs[-1], prec),
+                         lambda: conv3x3(x, tw, tb, prec)),
+            }
+            for kind, (kern, plain, library) in calls.items():
+                ms = time_ms(torch, kern, iters=20)
+                plain_ms = time_ms(torch, plain, iters=20)
+                lib_ms = time_ms(torch, library, iters=20)
+                flop, nbytes = edge_work(kind, shape, cin, cout, f, passes)
+                bms, by = roofline_ms(flop, nbytes)
+                ok = errs[kind] <= PLANE_TOL
+                print(f"{kind} kernel {case} {list(shape)} F={f} {prec}: max|err| "
+                      f"{errs[kind]:.2e} x max|ref| against the plane products in float64 "
+                      f"(limit {PLANE_TOL}); ms={ms:.4f} (20-call mean) plain_ms={plain_ms:.4f} "
+                      f"library_ms={lib_ms:.4f} (the class conv, cuDNN's TF32 plane convs) "
+                      f"bound_ms={bms:.4f} ({by}: {flop:.3e} flop, {nbytes:.3e} B) "
+                      f"{100 * bms / ms:.1f} % of the bound -> {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                check(ok, f"{kind} kernel {case} {prec} strays from the plane products")
+                results[(kind, case, prec)] = dict(max_abs_err=errs[kind], ms=ms, plain_ms=plain_ms,
+                                                   library_ms=lib_ms, bound_ms=bms, bound_by=by)
+            del x
+        del inputs, cat
         torch.cuda.empty_cache()
     return results
 
@@ -562,14 +671,16 @@ def phase_main_path(torch, api, weights, chain_mod, block_mod, card):
         t0 = time.perf_counter()
         runs["dsen2_20"][0](cfg)
         wall = time.perf_counter() - t0
-    # Each batch splits x and w of the head and of the tail, one plane pass each.
-    passes, patches = (profiling.counters().get(k, 0) - before.get(k, 0)
-                       for k in ("conv.plane_passes", "infer.patches"))
+    # Each batch runs one head and one tail kernel, and no plane pass.
+    passes, heads, tails, patches = (
+        profiling.counters().get(k, 0) - before.get(k, 0)
+        for k in ("conv.plane_passes", "s2net.heads", "s2net.tails", "infer.patches"))
     batches = -(-patches // cfg.batch_size)
-    print(f"dsen2_20 high: {passes:.0f} plane passes in {batches:.0f} batches of up to "
-          f"{cfg.batch_size} patches (counter conv.plane_passes)", flush=True)
-    check(passes == 4 * batches, "dsen2_20 high: the head and tail do not split through the "
-          "plane pass")
+    print(f"dsen2_20 high: {heads:.0f} head and {tails:.0f} tail launches, {passes:.0f} plane "
+          f"passes in {batches:.0f} batches of up to {cfg.batch_size} patches (counters "
+          f"s2net.heads, s2net.tails, conv.plane_passes)", flush=True)
+    check(heads == tails == batches and passes == 0,
+          "dsen2_20 high: the head and tail do not run as one kernel each a batch")
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     print(f"profile dsen2_20 high: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
@@ -748,12 +859,17 @@ def phase_full_tile(torch, api, weights, chain_mod, block_mod, card):
                   f"dsen2_20 {FULL_TILE}^2 {prec} {name} took the wrong route")
             rows[name] = (out, peak)
         convs = conv_ms(torch, banded)
-        print(f"dsen2_20 {FULL_TILE}^2 {prec} banded: head+tail convs {convs['ms']:.2f} ms "
-              f"per tile in {convs['calls']} cuDNN conv calls (aten::cudnn_convolution, device "
-              f"time with cuDNN's own layout kernels), of {convs['device_ms']:.2f} ms on the "
-              f"device (f32 NCHW convs before they ran at the class, at high: 562.41 ms of "
-              f"convs + 131.17 ms of transposes, PERF.md)",
+        edge = {k: sum(e.self_device_time_total for e in convs["events"]
+                       if e.device_type.name == "CUDA" and k in e.key) / 1e3
+                for k in ("head_kernel", "tail_kernel")}
+        print(f"dsen2_20 {FULL_TILE}^2 {prec} banded: head kernel {edge['head_kernel']:.2f} ms, "
+              f"tail kernel {edge['tail_kernel']:.2f} ms per tile, of {convs['device_ms']:.2f} "
+              f"ms on the device; {convs['calls']} cuDNN conv calls (the class conv's head and "
+              f"tail: 0.892 + 0.271 s of cuDNN's TF32 convs in a traced dsen2.tile window, "
+              f"PERF.md §6)",
               flush=True)
+        check(convs["calls"] == 0 and edge["head_kernel"] > 0 and edge["tail_kernel"] > 0,
+              f"dsen2_20 {FULL_TILE}^2 {prec}: the head and tail did not run as kernels")
         (b, peak_b), (o, peak_o) = rows["banded"], rows["one-shot"]
         diff = float(np.abs(b - o).max())
         limit = E2E_TOL[prec] * float(np.abs(o).max())
@@ -1706,13 +1822,15 @@ def main() -> int:
 
     t0 = time.perf_counter()
     res = phase_kernels(torch, resblock_chain, resblock)
+    edges = phase_edges(torch)
     print(f"phase 2: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    def plane_passes():
-        return profiling.counters().get("conv.plane_passes", 0)
+    def counted():
+        c = profiling.counters()
+        return {k: c.get(k, 0) for k in ("conv.plane_passes", "s2net.heads", "s2net.tails")}
 
     t0 = time.perf_counter()
-    passes0 = plane_passes()
+    counted0 = counted()
     launches = phase_main_path(torch, api, weights, resblock_chain, resblock, card)
     print(f"phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1720,7 +1838,6 @@ def main() -> int:
     full, banded_default = phase_full_tile(torch, api, weights, resblock_chain,
                                            resblock, card)
     launches = {k: n + full[k] for k, n in launches.items()}
-    launches["plane_pass"] = plane_passes() - passes0
     print(f"phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
@@ -1728,7 +1845,6 @@ def main() -> int:
     print(f"phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    passes0 = plane_passes()
     cli = phase_production(torch, api, weights, resblock_chain, resblock, card,
                            staged_rate)
     launches = {k: n + cli.get(k, 0) for k, n in launches.items()}
@@ -1738,7 +1854,9 @@ def main() -> int:
     mesh = phase_mesh(torch, api, weights, resblock_chain, resblock, card, banded_default,
                       torch.device("cuda", torch.cuda.current_device()))
     launches = {k: n + mesh.get(k, 0) for k, n in launches.items()}
-    launches["plane_pass"] += plane_passes() - passes0
+    # The plane pass runs in phase 5's training alone; the head and tail on
+    # the main path of phases 3, 4, 6 and 7.
+    launches.update({k: n - counted0[k] for k, n in counted().items()})
     del banded_default
     print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1770,10 +1888,19 @@ def main() -> int:
                             replaces="none: the JAX package has no RCAN",
                             launches=rcan_launches_n[counter], **rcan_res[(case, "high")]))
     # The class conv's plane pass: "high" at a training step's body operand;
-    # launches in the main-path runs of phases 3, 4, 6 and 7.
+    # launches in phases 3 to 7 (training's, phase 5).
     kernels.append(dict(name="dsen2_class_planes (plane_kernel)", route="cuda",
                         source="dsen2_tpu_torch/csrc/resblock_chain.cu", replaces="none",
-                        launches=launches["plane_pass"], **planes[(PLANE_SHAPES[0], "high")]))
+                        launches=launches["conv.plane_passes"],
+                        **planes[(PLANE_SHAPES[0], "high")]))
+    # DSen2's head and tail: "high" at dsen2_20's batch; launches in phases 3
+    # to 7.
+    for kind, counter in (("head", "s2net.heads"), ("tail", "s2net.tails")):
+        kernels.append(dict(name=f"dsen2_{kind} ({kind}_kernel)", route="cuda",
+                            source="dsen2_tpu_torch/csrc/resblock_chain.cu",
+                            replaces="none: the JAX package's XLA convs",
+                            launches=launches[counter],
+                            **edges[(kind, "2x", "high")]))
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi()}")

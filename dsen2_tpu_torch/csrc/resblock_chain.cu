@@ -28,6 +28,10 @@
 // in f32 and writes x + s * y with the planes the next conv1 reads. The group
 // and long-skip convs are EPI_RESIDUAL at scale 1.
 //
+// DSen2's head and tail convs on the kernel route, which feed B1 its first
+// planes and read its output, are two more kernels near the end of this file
+// (head_kernel, tail_kernel), with their own note there.
+//
 // Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): 2 * 9 * C^2 flop per
 // pixel per conv, x3 at bf16x3. At [64,128,128,128] one block is 0.625 ms of
 // operations at "default" and 1.875 ms at "high"; the function's own bytes
@@ -1034,6 +1038,520 @@ int dispatch_c(const ConvArgs* a, int C, int passes, int dtype, int epilogue, cu
   }
 }
 
+
+// ------------------------------------------------ DSen2's head and tail convs
+//
+// The net's first and last 3x3 convs on the kernel route (ops/head_tail.py):
+//   head: x = relu(conv(concat(inputs), w) + b) for 2 or 3 NHWC f32 inputs of
+//         at most 16 channels together and F = 128 or 256 outputs; x in
+//         f32 and, when asked, x's bf16 planes for B1's first conv1 (what
+//         split_kernel would write, bit for bit: store_split's rounding);
+//   tail: out = (conv(x, w) + b) + resid for f32 x of F channels and at most
+//         8 outputs, resid the net's last input (the global residual).
+// Both at the class: "high" sums xh*wh + xl*wh + xh*wl, "default" xh*wh, each
+// product of bf16 values exact in the f32 accumulator of mma.m16n8k16, x
+// split in registers with store_split's rounding. They replace no TPU
+// kernel: the JAX package leaves the head and tail to XLA convs. Training
+// keeps the class conv (ops/conv.py): it needs the convs' backward and the
+// planes the forward saves for it, which these kernels, made for inference,
+// do not have.
+//
+// Bytes bound them. Per pixel the head reads about 44 B and writes 4 F B of
+// x plus 2 F B per plane (1,024 B at F = 128 "high") for 2 x 9 x 16 x F
+// products a pass; the tail reads 4 F B of x (512 B) and writes 48 B for
+// 2 x 9 x F x 8 products a pass. At [64, 128, 128] that is 0.33 ms for the
+// head and 0.18 ms for the tail at 3.35 TB/s, 3x and 3x the time of their
+// "high" products at the tensor cores' bf16 peak. So the design spends its
+// effort on the memory side:
+// - a CTA takes 16 x 16 output pixels at a time from a persistent grid; the
+//   18 x 18 pixel window of 16 input channels (one k16 step, f32) lands in
+//   shared memory by cp.async (16 B a copy in the tail; 4 B in the head,
+//   whose inputs are 4, 6 and 2 channels wide), zero outside the image (the
+//   SAME padding), while the CTA computes the window before it (a ring of 2
+//   stages in the head; 3 in the tail, whose F / 16 windows a tile follow
+//   each other through it, across tiles too);
+// - each warp owns 4 output rows x 16 pixels; in the tail an A fragment (16
+//   pixels x 16 channels, split to its planes in registers) serves every
+//   output row its window row reaches (18 fragments a k16 step for 36 row
+//   taps), and a weight fragment all 4 rows;
+// - the weights are packed by the host in mma.m16n8k16's B-fragment order
+//   (ops/head_tail.py, pack_fragments), so that a warp reads a fragment as
+//   256 contiguous bytes: the head's stay in shared memory for the whole
+//   launch (74 KB at F = 128 "high"), the tail's come through L1 (4.6 KB a
+//   k16 step), which leaves it room for 3 CTAs an SM;
+// - the head's epilogue transposes within each quad of lanes so that every
+//   store of x and of its planes is 16 contiguous bytes.
+// What they reach on an H100 (chip_smoke.py phase 2, PERF.md §6): 47-61 %
+// of the bytes bound for the head, 35-53 % for the tail. Neither more CTAs
+// an SM for the tail nor an L2 prefetch of its window rows moved it; what is
+// left is the wait between a step's window and its 24 to 216 products.
+// A pixel's sums run in a fixed order (k16 step, tap, then hi*hi, lo*hi,
+// hi*lo) whatever the tile, the batch or the grid, with no atomics, so a
+// patch gives the same bits alone and inside any batch.
+
+constexpr int kEdgeTile = 16;                     // a CTA's tile: 16 x 16 output pixels
+constexpr int kEdgeWin = kEdgeTile + 2;           // its window: 18 x 18 pixels, halo 1
+constexpr int kEdgeWinPix = kEdgeWin * kEdgeWin;  // 324
+constexpr int kEdgeRows = 4;                      // output rows of a warp
+constexpr int kEdgeStage = kEdgeWinPix * 64;      // a window of 16 f32 channels: 20,736 B
+constexpr int kFragBytes = 32 * 8;                // one warp's B fragment of m16n8k16
+constexpr int kHeadThreads = 256;                 // 4 row strips x 2 channel quarters
+constexpr int kTailThreads = 128;                 // 4 row strips
+constexpr int kTailStages = 3;
+constexpr int kHeadMaxCin = 16, kTailMaxCout = 8;
+
+struct HeadArgs {
+  const float* in0;        // the net's inputs, [B][H][W][c] f32 of c0, c1 and c2
+  const float* in1;        // channels (c2 = 0: no third input), element strides
+  const float* in2;        // s[i] = (b, y, x, channel) of input i: any layout
+  int c0, c1, c2;
+  long long s[3][4];
+  const uint32_t* frags;   // w as B fragments [9][F / 8][PLANES][32 lanes][2]
+  const float* bias;       // [F]
+  float* out;              // x [B][H][W][F]
+  __nv_bfloat16* planes;   // x's planes [PLANES][B][H][W][F], or null
+  int B, H, W;
+};
+
+struct TailArgs {
+  const float* x;          // [B][H][W][F]
+  const uint32_t* frags;   // w as B fragments [F / 16][9][PLANES][32 lanes][2]
+  const float* bias;       // [cout]
+  const float* resid;      // [B][H][W][cout], element strides rs (b, y, x, channel)
+  float* out;              // [B][H][W][cout]
+  long long rs[4];
+  int B, H, W, cout;
+};
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d += a * b: one m16n8k16 product of bf16 fragments with f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Byte offset of the 16-byte group `grp` (channels 4 grp .. 4 grp + 3) of
+// window pixel `px` in a stage: 64 B a pixel, the pixel's two halves swapped
+// where bit 1 of px is set, so that an A fragment's loads from any 4
+// consecutive pixels fall in distinct banks.
+__device__ __forceinline__ int edge_off(int px, int grp) {
+  return px * 64 + ((grp ^ (px & 2)) << 4);
+}
+
+// The A fragment (rows: window pixels px0 .. px0 + 15, columns: the stage's
+// 16 channels) split into its planes: hi = bf16(v), lo = bf16(v - hi).
+template <int PASSES>
+__device__ __forceinline__ void edge_a_frag(const unsigned char* stage, int px0, int lane,
+                                            uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // a0: (row g, k 2t), a1: (row g + 8, k 2t), a2: (row g, k 2t + 8), a3: (row g + 8, k 2t + 8)
+    const int px = px0 + g + 8 * (i & 1), grp = 2 * (i >> 1) + (t >> 1);
+    const float2 v = *reinterpret_cast<const float2*>(stage + edge_off(px, grp) + 8 * (t & 1));
+    hi[i] = bf16x2_bits(v.x, v.y);
+    if (PASSES == 3) lo[i] = bf16x2_lo_bits(v.x, v.y, hi[i]);
+  }
+}
+
+__device__ __forceinline__ void edge_tile(int tile, int H, int W, int& b, int& y0, int& x0) {
+  const int tx = (W + kEdgeTile - 1) / kEdgeTile, ty = (H + kEdgeTile - 1) / kEdgeTile;
+  x0 = (tile % tx) * kEdgeTile;
+  tile /= tx;
+  y0 = (tile % ty) * kEdgeTile;
+  b = tile / ty;
+}
+
+// Copy `bytes` (a multiple of 16) of fragments into shared memory.
+__device__ __forceinline__ void edge_copy(unsigned char* dst, const uint32_t* src, int bytes) {
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(dst)[i] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+}
+
+// The head's window of `tile` into the stage at `stage`: channel k of the
+// inputs' concatenation at channel k, 4 B a copy (channels cin .. 15 stay
+// zero).
+__device__ __forceinline__ void head_fill(const HeadArgs& a, uint32_t stage, int tile) {
+  int b, y0, x0;
+  edge_tile(tile, a.H, a.W, b, y0, x0);
+  const int cin = a.c0 + a.c1 + a.c2;
+  for (int i = threadIdx.x; i < kEdgeWinPix * cin; i += blockDim.x) {
+    const int px = i / cin, k = i - px * cin;
+    const int y = y0 - 1 + px / kEdgeWin, x = x0 - 1 + px % kEdgeWin;
+    const bool in = y >= 0 && y < a.H && x >= 0 && x < a.W;
+    const long long yy = in ? y : 0, xx = in ? x : 0;
+    const float* src;
+    if (k < a.c0)
+      src = a.in0 + b * a.s[0][0] + yy * a.s[0][1] + xx * a.s[0][2] + k * a.s[0][3];
+    else if (k < a.c0 + a.c1)
+      src = a.in1 + b * a.s[1][0] + yy * a.s[1][1] + xx * a.s[1][2] + (k - a.c0) * a.s[1][3];
+    else
+      src = a.in2 + b * a.s[2][0] + yy * a.s[2][1] + xx * a.s[2][2] +
+            (k - a.c0 - a.c1) * a.s[2][3];
+    cp_async4(stage + edge_off(px, k >> 2) + 4 * (k & 3), src, in);
+  }
+}
+
+// The tail's window of channels 16 kc .. 16 kc + 15 of `tile`, 16 B a copy.
+template <int F>
+__device__ __forceinline__ void tail_fill(const TailArgs& a, uint32_t stage, int tile, int kc) {
+  int b, y0, x0;
+  edge_tile(tile, a.H, a.W, b, y0, x0);
+  for (int i = threadIdx.x; i < kEdgeWinPix * 4; i += blockDim.x) {
+    const int px = i >> 2, grp = i & 3;
+    const int y = y0 - 1 + px / kEdgeWin, x = x0 - 1 + px % kEdgeWin;
+    const bool in = y >= 0 && y < a.H && x >= 0 && x < a.W;
+    const size_t pix = (static_cast<size_t>(b) * a.H + (in ? y : 0)) * a.W + (in ? x : 0);
+    cp_async16(stage + edge_off(px, grp), a.x + pix * F + 16 * kc + 4 * grp, in);
+  }
+}
+
+// The head's epilogue for one warp: x = relu(acc + b) for its 4 rows x 16
+// pixels x channels 64 nq .. 64 nq + 63, stored with its planes.
+template <int F, int PASSES>
+__device__ __forceinline__ void head_epilogue(const HeadArgs& a, float (&acc)[kEdgeRows][8][4],
+                                              int b, int y, int x0, int nq, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const size_t plane_elems = static_cast<size_t>(a.B) * a.H * a.W * F;
+#pragma unroll
+  for (int o = 0; o < kEdgeRows; ++o) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int yy = y + o, xx = x0 + g + 8 * hf;
+      const bool in = yy < a.H && xx < a.W;
+      const size_t pix = (static_cast<size_t>(b) * a.H + yy) * a.W + xx;
+#pragma unroll
+      for (int gg = 0; gg < 2; ++gg) {
+        // Lane t holds columns 2t and 2t + 1 of the 8-column blocks 4 gg ..
+        // 4 gg + 3; after the transposes, all 8 columns of block 4 gg + t.
+        uint32_t u0[4], u1[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          u0[j] = __float_as_uint(acc[o][4 * gg + j][2 * hf]);
+          u1[j] = __float_as_uint(acc[o][4 * gg + j][2 * hf + 1]);
+        }
+        quad_transpose(u0, t);
+        quad_transpose(u1, t);
+        const int c = 64 * nq + 32 * gg + 8 * t;
+        const float4 b0 = __ldg(reinterpret_cast<const float4*>(a.bias + c));
+        const float4 b1 = __ldg(reinterpret_cast<const float4*>(a.bias + c) + 1);
+        const float bias[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float s = __fadd_rn(__uint_as_float((i & 1) ? u1[i >> 1] : u0[i >> 1]), bias[i]);
+          v[i] = s < 0.f ? 0.f : s;
+        }
+        if (!in) continue;
+        float4* dst = reinterpret_cast<float4*>(a.out + pix * F + c);
+        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+        if (a.planes == nullptr) continue;
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          hi[i] = bf16x2_bits(v[2 * i], v[2 * i + 1]);
+          lo[i] = bf16x2_lo_bits(v[2 * i], v[2 * i + 1], hi[i]);
+        }
+        store16(a.planes + pix * F + c, hi);
+        if (PASSES == 3) store16(a.planes + plane_elems + pix * F + c, lo);
+      }
+    }
+  }
+}
+
+// One head tile: warp w takes rows 4 (w % 4) .. 4 (w % 4) + 3 and the
+// channel quarters w / 4, w / 4 + 2, ... (F = 256: two in turn).
+template <int F, int PASSES>
+__device__ __forceinline__ void head_tile(const HeadArgs& a, const unsigned char* wsm,
+                                          const unsigned char* stage, int tile, int warp,
+                                          int lane) {
+  constexpr int P = PASSES == 3 ? 2 : 1, NB = F / 8;
+  int b, y0, x0;
+  edge_tile(tile, a.H, a.W, b, y0, x0);
+  const int strip = warp & 3;
+  for (int nq = warp >> 2; nq < F / 64; nq += 2) {
+    float acc[kEdgeRows][8][4];
+#pragma unroll
+    for (int o = 0; o < kEdgeRows; ++o)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[o][j][e] = 0.f;
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap - 3 * dy;
+      uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const unsigned char* f = wsm + ((tap * NB + 8 * nq + j) * P) * kFragBytes + 8 * lane;
+        const uint2 u = *reinterpret_cast<const uint2*>(f);
+        bh[j][0] = u.x;
+        bh[j][1] = u.y;
+        if (PASSES == 3) {
+          const uint2 v = *reinterpret_cast<const uint2*>(f + kFragBytes);
+          bl[j][0] = v.x;
+          bl[j][1] = v.y;
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < kEdgeRows; ++o) {
+        uint32_t ah[4], al[4];
+        edge_a_frag<PASSES>(stage, (kEdgeRows * strip + o + dy) * kEdgeWin + dx, lane, ah, al);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mma_bf16(acc[o][j], ah, bh[j]);
+        if (PASSES == 3) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) mma_bf16(acc[o][j], al, bh[j]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) mma_bf16(acc[o][j], ah, bl[j]);
+        }
+      }
+    }
+    head_epilogue<F, PASSES>(a, acc, b, y0 + kEdgeRows * strip, x0, nq, lane);
+  }
+}
+
+// Shared memory: [weight fragments][2 window stages].
+template <int F, int PASSES>
+__host__ __device__ constexpr int head_smem() {
+  return 9 * (F / 8) * (PASSES == 3 ? 2 : 1) * kFragBytes + 2 * kEdgeStage;
+}
+
+// Block i takes tiles i, i + gridDim.x, ...; the next tile's window loads
+// while this one is computed.
+template <int F, int PASSES>
+__global__ void __launch_bounds__(kHeadThreads, 1) head_kernel(const HeadArgs a, int tiles) {
+  constexpr int WBYTES = head_smem<F, PASSES>() - 2 * kEdgeStage;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* stages = smem_raw + WBYTES;
+  const uint32_t st0 = smem_u32(stages);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  edge_copy(smem_raw, a.frags, WBYTES);
+  for (int i = threadIdx.x; i < 2 * kEdgeStage / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(stages)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  const int first = static_cast<int>(blockIdx.x), step = static_cast<int>(gridDim.x);
+  const int mine = tiles > first ? (tiles - 1 - first) / step + 1 : 0;
+  if (mine > 0) head_fill(a, st0, first);
+  cp_async_commit();
+  for (int i = 0; i < mine; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // window i is in; every warp is done with window i - 1
+    if (i + 1 < mine) head_fill(a, st0 + ((i + 1) & 1) * kEdgeStage, first + (i + 1) * step);
+    cp_async_commit();
+    head_tile<F, PASSES>(a, smem_raw, stages + (i & 1) * kEdgeStage, first + i * step, warp,
+                         lane);
+  }
+}
+
+// One k16 step (channels 16 kc ..) of a tail tile for one warp's 4 rows: each
+// A fragment of its 6 window rows x 3 column shifts feeds the rows it reaches.
+// The step's weight fragments (4.6 KB at "high") come through L1.
+template <int PASSES>
+__device__ __forceinline__ void tail_step(const uint32_t* frags, const unsigned char* stage,
+                                          int kc, int strip, int lane,
+                                          float (&acc)[kEdgeRows][4]) {
+  constexpr int P = PASSES == 3 ? 2 : 1;
+  uint32_t bh[9][2], bl[9][2];
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const uint2* f = reinterpret_cast<const uint2*>(frags) + ((kc * 9 + tap) * P) * 32 + lane;
+    const uint2 u = __ldg(f);
+    bh[tap][0] = u.x;
+    bh[tap][1] = u.y;
+    if (PASSES == 3) {
+      const uint2 v = __ldg(f + 32);
+      bl[tap][0] = v.x;
+      bl[tap][1] = v.y;
+    }
+  }
+#pragma unroll
+  for (int wr = 0; wr < kEdgeRows + 2; ++wr) {
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      uint32_t ah[4], al[4];
+      edge_a_frag<PASSES>(stage, (kEdgeRows * strip + wr) * kEdgeWin + dx, lane, ah, al);
+      // Output row o takes this fragment at tap (wr - o, dx), so its taps
+      // come in order as wr rises.
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const int o = wr - dy;
+        if (o < 0 || o >= kEdgeRows) continue;
+        mma_bf16(acc[o], ah, bh[3 * dy + dx]);
+        if (PASSES == 3) {
+          mma_bf16(acc[o], al, bh[3 * dy + dx]);
+          mma_bf16(acc[o], ah, bl[3 * dy + dx]);
+        }
+      }
+    }
+  }
+}
+
+// out = (acc + b) + resid for the warp's 4 rows x 16 pixels, channels < cout.
+__device__ __forceinline__ void tail_epilogue(const TailArgs& a, float (&acc)[kEdgeRows][4],
+                                              int tile, int strip, int lane) {
+  int b, y0, x0;
+  edge_tile(tile, a.H, a.W, b, y0, x0);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int o = 0; o < kEdgeRows; ++o) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int y = y0 + kEdgeRows * strip + o, x = x0 + g + 8 * hf;
+      if (y >= a.H || x >= a.W) continue;
+      const size_t pix = (static_cast<size_t>(b) * a.H + y) * a.W + x;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 2 * t + e;
+        if (c >= a.cout) continue;
+        const float r = __ldg(a.resid + b * a.rs[0] + y * a.rs[1] + x * a.rs[2] + c * a.rs[3]);
+        a.out[pix * a.cout + c] = __fadd_rn(__fadd_rn(acc[o][2 * hf + e], __ldg(a.bias + c)), r);
+      }
+    }
+  }
+}
+
+// Shared memory: kTailStages window stages.
+constexpr int kTailSmem = kTailStages * kEdgeStage;
+
+// Block i takes tiles i, i + gridDim.x, ..., each as F / 16 k16 steps; the
+// windows of the next two steps load while a step is computed, across tiles
+// too.
+template <int F, int PASSES>
+__global__ void __launch_bounds__(kTailThreads, 3) tail_kernel(const TailArgs a, int tiles) {
+  constexpr int KC = F / 16;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* stages = smem_raw;
+  const uint32_t st0 = smem_u32(stages);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int first = static_cast<int>(blockIdx.x), step = static_cast<int>(gridDim.x);
+  const int steps = (tiles > first ? (tiles - 1 - first) / step + 1 : 0) * KC;
+  auto load_step = [&](int s) {
+    if (s < steps)
+      tail_fill<F>(a, st0 + (s % kTailStages) * kEdgeStage, first + (s / KC) * step, s % KC);
+    cp_async_commit();
+  };
+  for (int s = 0; s < kTailStages - 1; ++s) load_step(s);
+  float acc[kEdgeRows][4];
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kTailStages - 2>();
+    __syncthreads();  // step s's window is in; every warp is done with step s - 1's
+    load_step(s + kTailStages - 1);
+    const int kc = s % KC;
+    if (kc == 0) {
+#pragma unroll
+      for (int o = 0; o < kEdgeRows; ++o)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[o][e] = 0.f;
+    }
+    tail_step<PASSES>(a.frags, stages + (s % kTailStages) * kEdgeStage, kc, warp, lane, acc);
+    if (kc == KC - 1) tail_epilogue(a, acc, first + (s / KC) * step, warp, lane);
+  }
+}
+
+// Blocks of `kernel` (threads, dynamic shared memory) that fit on the current
+// device at once, read once per device and instantiation into `cache`;
+// returns 0, a cudaError_t, or -1 if none fits.
+int edge_resident(const void* kernel, int threads, int smem, std::atomic<int>* cache, int* fit) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return -1;
+  int n = cache[dev].load(std::memory_order_acquire);
+  if (n == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    n = per_sm * sms;
+    if (n <= 0) return -1;
+    cache[dev].store(n, std::memory_order_release);
+  }
+  *fit = n;
+  return 0;
+}
+
+template <int F, int PASSES>
+int launch_head(const HeadArgs& a, long long tiles, cudaStream_t s) {
+  static std::atomic<int> cache[64];
+  constexpr int smem = head_smem<F, PASSES>();
+  static_assert(smem <= kSmemMax, "head shared memory");
+  auto kernel = head_kernel<F, PASSES>;
+  int fit = 0;
+  const int err =
+      edge_resident(reinterpret_cast<const void*>(kernel), kHeadThreads, smem, cache, &fit);
+  if (err != 0) return err;
+  kernel<<<static_cast<int>(tiles < fit ? tiles : fit), kHeadThreads, smem, s>>>(
+      a, static_cast<int>(tiles));
+  return (int)cudaGetLastError();
+}
+
+template <int F, int PASSES>
+int launch_tail(const TailArgs& a, long long tiles, cudaStream_t s) {
+  static std::atomic<int> cache[64];
+  constexpr int smem = kTailSmem;
+  auto kernel = tail_kernel<F, PASSES>;
+  int fit = 0;
+  const int err =
+      edge_resident(reinterpret_cast<const void*>(kernel), kTailThreads, smem, cache, &fit);
+  if (err != 0) return err;
+  kernel<<<static_cast<int>(tiles < fit ? tiles : fit), kTailThreads, smem, s>>>(
+      a, static_cast<int>(tiles));
+  return (int)cudaGetLastError();
+}
+
+// The 16 x 16 tiles of [B, H, W], or -1 beyond what the kernels index.
+long long edge_tiles(int B, int H, int W, int F) {
+  const long long tiles = static_cast<long long>(B) * ((H + kEdgeTile - 1) / kEdgeTile) *
+                          ((W + kEdgeTile - 1) / kEdgeTile);
+  return tiles * (F / 16) > (1LL << 30) ? -1 : tiles;
+}
+
+template <int PASSES>
+int head_f(const HeadArgs& a, int F, long long tiles, cudaStream_t s) {
+  switch (F) {
+    case 128: return launch_head<128, PASSES>(a, tiles, s);
+    case 256: return launch_head<256, PASSES>(a, tiles, s);
+    default: return -1;
+  }
+}
+
+template <int PASSES>
+int tail_f(const TailArgs& a, int F, long long tiles, cudaStream_t s) {
+  switch (F) {
+    case 128: return launch_tail<128, PASSES>(a, tiles, s);
+    case 256: return launch_tail<256, PASSES>(a, tiles, s);
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 // C interface, bound with ctypes. Each returns 0, a cudaError_t from the
@@ -1182,4 +1700,86 @@ extern "C" int dsen2_conv3x3_clusters(int C, int passes, int dtype, int epilogue
   int clusters = 0;
   const int err = dispatch_c(nullptr, C, passes, dtype, epilogue, nullptr, &clusters);
   return err != 0 ? (err > 0 ? -err : err) : clusters;
+}
+
+// DSen2's head (head_kernel): out = relu(conv(concat(in0, in1, in2), w) +
+// bias), f32 [B][H][W][F], and, unless planes is null, out's bf16 planes
+// [passes == 3 ? 2 : 1][B][H][W][F]. Inputs f32 [B][H][W][c] of c0 > 0,
+// c1 >= 0 and c2 >= 0 channels, at most 16 together, in any layout:
+// strides[4 i .. 4 i + 3] are input i's element strides (b, y, x, channel);
+// frags from pack_fragments (ops/head_tail.py); F = 128 or 256.
+extern "C" int dsen2_head(const void* in0, const void* in1, const void* in2, int c0, int c1,
+                          int c2, const long long* strides, const void* frags, const void* bias,
+                          void* out, void* planes, int B, int H, int W, int F, int passes,
+                          void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || c0 <= 0 || c1 < 0 || c2 < 0 ||
+      c0 + c1 + c2 > kHeadMaxCin)
+    return -1;
+  if (in0 == nullptr || (c1 > 0 && in1 == nullptr) || (c2 > 0 && in2 == nullptr) ||
+      strides == nullptr || frags == nullptr || bias == nullptr || out == nullptr)
+    return -1;
+  const void* inputs[] = {in0, in1, in2};
+  for (const void* p : inputs)
+    if (reinterpret_cast<uintptr_t>(p) % 4) return -1;
+  const void* vectors[] = {frags, bias, out, planes};
+  for (const void* p : vectors)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return -1;
+  HeadArgs a;
+  a.in0 = static_cast<const float*>(in0);
+  a.in1 = static_cast<const float*>(in1);
+  a.in2 = static_cast<const float*>(in2);
+  a.c0 = c0;
+  a.c1 = c1;
+  a.c2 = c2;
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 4; ++j) a.s[i][j] = strides[4 * i + j];
+  a.frags = static_cast<const uint32_t*>(frags);
+  a.bias = static_cast<const float*>(bias);
+  a.out = static_cast<float*>(out);
+  a.planes = static_cast<__nv_bfloat16*>(planes);
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  const long long tiles = edge_tiles(B, H, W, 16);
+  if (tiles <= 0) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (passes == 1) return head_f<1>(a, F, tiles, s);
+  if (passes == 3) return head_f<3>(a, F, tiles, s);
+  return -1;
+}
+
+// DSen2's tail (tail_kernel): out = (conv(x, w) + bias) + resid, f32
+// [B][H][W][cout], for contiguous f32 x [B][H][W][F] (F = 128 or 256),
+// resid f32 [B][H][W][cout] in any layout (element strides rstrides: b, y,
+// x, channel) and 1 <= cout <= 8; frags from pack_fragments.
+extern "C" int dsen2_tail(const void* x, const void* frags, const void* bias, const void* resid,
+                          const long long* rstrides, void* out, int B, int H, int W, int F,
+                          int cout, int passes, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || cout <= 0 || cout > kTailMaxCout) return -1;
+  if (x == nullptr || frags == nullptr || bias == nullptr || resid == nullptr ||
+      rstrides == nullptr || out == nullptr)
+    return -1;
+  const void* vectors[] = {x, frags};
+  for (const void* p : vectors)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return -1;
+  const void* scalars[] = {bias, resid, out};
+  for (const void* p : scalars)
+    if (reinterpret_cast<uintptr_t>(p) % 4) return -1;
+  TailArgs a;
+  a.x = static_cast<const float*>(x);
+  a.frags = static_cast<const uint32_t*>(frags);
+  a.bias = static_cast<const float*>(bias);
+  a.resid = static_cast<const float*>(resid);
+  a.out = static_cast<float*>(out);
+  for (int j = 0; j < 4; ++j) a.rs[j] = rstrides[j];
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.cout = cout;
+  const long long tiles = edge_tiles(B, H, W, F);
+  if (tiles <= 0) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (passes == 1) return tail_f<1>(a, F, tiles, s);
+  if (passes == 3) return tail_f<3>(a, F, tiles, s);
+  return -1;
 }

@@ -9,13 +9,17 @@ The counterpart of dsen2_tpu/models/s2net.py:101-254:
     x = conv3x3(x, C_out)                         # tail
     out = x + inputs[-1]                          # global residual
 
-Activations are NHWC and kernels HWIO, as in the JAX package. The head and
-tail convs, and the blocks when no kernel runs them, are the plain class conv
-of ops/conv.py, forward and backward at the requested precision, as the JAX
+Activations are NHWC and kernels HWIO, as in the JAX package. Off the kernel
+route the head and tail convs, and the blocks, are the plain class conv of
+ops/conv.py, forward and backward at the requested precision, as the JAX
 package's XLA convs are. Training runs plain convs only (the kernels have no
 backward), with `remat=True` recomputing each block in the backward, the
-counterpart of jax.checkpoint. Routing of the residual blocks, for a tensor on
-a GPU with use_kernels None or True:
+counterpart of jax.checkpoint. On the kernel route with f32 activations the
+head and tail are kernels too at 128 and 256 features (ops/head_tail.py:
+the head writes x and the planes B1's first conv1 reads, the tail adds the
+global residual); bf16 compute_dtype and other widths keep the class conv
+there. Routing of the residual blocks, for a tensor on a GPU with
+use_kernels None or True:
 
   - "high" (bf16x3) and "default" (one pass) always run the hand-written
     kernels, at every height and block count: B1 (`fused_resblock_chain`)
@@ -41,6 +45,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from dsen2_tpu_torch.core.config import ModelConfig
+from dsen2_tpu_torch.ops import head_tail
 from dsen2_tpu_torch.ops.conv import PRECISIONS, conv3x3
 from dsen2_tpu_torch.ops.resblock import fused_resblock
 from dsen2_tpu_torch.ops.resblock_chain import fused_resblock_chain
@@ -114,10 +119,9 @@ def apply(
     activations (torch.utils.checkpoint)."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-    x = torch.cat(list(inputs), dim=-1)
-    x = torch.relu(conv3x3(x, params["head"]["w"], params["head"]["b"], precision))
     blk = params["blocks"]
-    kernels = _kernels_on(use_kernels, precision, x.device)
+    kernels = _kernels_on(use_kernels, precision, inputs[0].device)
+    f32 = inputs[0].dtype == torch.float32
 
     if kernels and precision == "highest":
         warnings.warn(
@@ -126,13 +130,24 @@ def apply(
         )
         kernels = False
     passes = 3 if precision == "high" else 1
-    if kernels and passes == 3 and x.dtype != torch.float32:
+    if kernels and passes == 3 and not f32:
         warnings.warn(
             "use_kernels with precision='high' needs f32 activations; "
             "bf16 compute_dtype runs the single-pass kernel instead"
         )
         passes = 1
+    chain = kernels and (passes == 3 or (cfg.num_layers % 2 == 0 and inputs[0].shape[1] % 8 == 0))
+    # The head and tail kernels where the blocks run on the kernels with f32
+    # activations at a width they take; off the CPU (whose plain B1 splits x
+    # itself) the head then writes the planes B1's first conv1 reads.
+    edges = kernels and f32 and cfg.feature_size in head_tail.EDGE_CHANNELS
 
+    if edges:
+        x, planes = head_tail.head(inputs, params["head"]["w"], params["head"]["b"], precision,
+                                   planes=chain and inputs[0].device.type != "cpu")
+    else:
+        x, planes = head_tail.head_plain(inputs, params["head"]["w"], params["head"]["b"],
+                                         precision)
     if not kernels:
         def block(x, k):
             t = torch.relu(conv3x3(x, blk["w1"][k], blk["b1"][k], precision))
@@ -140,10 +155,10 @@ def apply(
 
         for k in range(cfg.num_layers):
             x = checkpoint(block, x, k, use_reentrant=False) if remat else block(x, k)
-    elif passes == 3 or (cfg.num_layers % 2 == 0 and x.shape[1] % 8 == 0):
+    elif chain:
         with profiling.span("s2net.b1"):
             x = fused_resblock_chain(x, blk["w1"], blk["b1"], blk["w2"], blk["b2"],
-                                     scale=cfg.residual_scale, passes=passes)
+                                     scale=cfg.residual_scale, passes=passes, planes=planes)
     else:
         h = x.shape[1]
         tile_rows = next((t for t in (16, 8, 4, 2) if h % t == 0), h)
@@ -151,8 +166,8 @@ def apply(
             x = fused_resblock(x, blk["w1"][k], blk["b1"][k], blk["w2"][k], blk["b2"][k],
                                scale=cfg.residual_scale, tile_rows=tile_rows)
 
-    x = conv3x3(x, params["tail"]["w"], params["tail"]["b"], precision)
-    return x + inputs[-1]
+    tail = head_tail.tail if edges else head_tail.tail_plain
+    return tail(x, params["tail"]["w"], params["tail"]["b"], inputs[-1], precision)
 
 
 # The parameters in a fixed order, whatever order a params dict was built in:

@@ -70,6 +70,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dsen2_conv3x3_pool.restype = i
     lib.dsen2_ca_gate.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.dsen2_ca_gate.restype = i
+    lp = ctypes.POINTER(ll)
+    lib.dsen2_head.argtypes = [p, p, p, i, i, i, lp, p, p, p, p, i, i, i, i, i, p]
+    lib.dsen2_head.restype = i
+    lib.dsen2_tail.argtypes = [p, p, p, p, lp, p, i, i, i, i, i, i, p]
+    lib.dsen2_tail.restype = i
     return lib
 
 

@@ -194,14 +194,16 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed (error {err})")
 
 
-def launch_blocks(x, w1, b1, w2, b2, scale: float, passes: int) -> torch.Tensor:
+def launch_blocks(x, w1, b1, w2, b2, scale: float, passes: int, planes=None) -> torch.Tensor:
     """Run K blocks on the card: x [B, H, W, C]; w [K, 3, 3, C, C]; b [K, C].
     Packs all K blocks' weights in one call, then launches, per block, the
     conv kernel twice (conv1 with the ReLU epilogue, conv2 with the residual
-    one). f32 x first goes through split_kernel once; each conv2 but the last
-    writes the planes the next block's conv1 reads. Adds the launches' tiles
-    to b1.tiles and b1.tiles_overlapped (`count_tiles`). Returns a new tensor;
-    raises if the kernels cannot take the arguments or a launch fails."""
+    one). f32 x first goes through split_kernel once, unless `planes` holds
+    x's planes already (split_planes(x, passes), as the head kernel writes
+    them; the blocks then overwrite it); each conv2 but the last writes the
+    planes the next block's conv1 reads. Adds the launches' tiles to b1.tiles
+    and b1.tiles_overlapped (`count_tiles`). Returns a new tensor; raises if
+    the kernels cannot take the arguments or a launch fails."""
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {x.device}")
     if not x.is_contiguous() or x.data_ptr() % 16:
@@ -222,16 +224,25 @@ def launch_blocks(x, w1, b1, w2, b2, scale: float, passes: int) -> torch.Tensor:
     bsz, h, w, _ = x.shape
     f32 = x.dtype == torch.float32
     nplanes = 2 if passes == 3 else 1
+    if planes is not None:
+        if not f32:
+            raise ValueError("planes are taken for float32 activations only")
+        if (planes.device != x.device or planes.dtype != torch.bfloat16
+                or tuple(planes.shape) != (nplanes, *x.shape) or not planes.is_contiguous()
+                or planes.data_ptr() % 16):
+            raise ValueError(f"planes must be contiguous bf16 {(nplanes, *x.shape)} on "
+                             f"{x.device}, got {planes.dtype} {tuple(planes.shape)} on "
+                             f"{planes.device}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     t = torch.empty((nplanes, *x.shape), dtype=torch.bfloat16, device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        if f32:
+        if not f32:
+            planes = x
+        elif planes is None:
             planes = torch.empty_like(t)
             _check(lib.dsen2_split_planes(x.data_ptr(), planes.data_ptr(), x.numel(), passes,
                                           stream), "split")
-        else:
-            planes = x
         resid = x
         nblocks = w1.shape[0]
         for k in range(nblocks):
@@ -252,20 +263,27 @@ def launch_blocks(x, w1, b1, w2, b2, scale: float, passes: int) -> torch.Tensor:
     return out
 
 
-def fused_resblock_chain(x, w1, b1, w2, b2, *, scale: float = 0.1, passes: int = 1):
+def fused_resblock_chain(x, w1, b1, w2, b2, *, scale: float = 0.1, passes: int = 1,
+                         planes=None):
     """Apply K chained resblocks: x [B, H, W, C]; w1/w2 [K, 3, 3, C, C];
     b1/b2 [K, C]. passes=1 is one bf16 pass (the "default" class), passes=3
-    bf16x3 (the "high" class, f32 x only).
+    bf16x3 (the "high" class, f32 x only). `planes`: x's bf16 planes
+    [1 or 2, B, H, W, C] (split_planes(x, passes)) where the caller has them
+    (the head kernel writes them), or None; the kernels take them in place of
+    their own split and overwrite them, the plain version has no use for them.
 
     A CUDA tensor goes through the kernels (`launch_blocks`), any H and W; a
     CPU tensor through `resblock_chain_plain`. The counter b1.blocks (and
     `.launches`) counts residual blocks run on the card, K per call, whatever
     the number of CUDA launches a block takes (two convs, plus one split per
-    call for f32 x)."""
+    call for f32 x without planes)."""
     check_args(x, w1, b1, w2, b2, passes)
+    if planes is not None and tuple(planes.shape) != (2 if passes == 3 else 1, *x.shape):
+        raise ValueError(f"planes must have shape {(2 if passes == 3 else 1, *x.shape)}, got "
+                         f"{tuple(planes.shape)}")
     if x.device.type == "cpu":
         return resblock_chain_plain(x, w1, b1, w2, b2, scale=scale, passes=passes)
-    x = launch_blocks(x, w1, b1, w2, b2, scale, passes)
+    x = launch_blocks(x, w1, b1, w2, b2, scale, passes, planes)
     count_launches(fused_resblock_chain, w1.shape[0])
     return x
 

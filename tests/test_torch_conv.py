@@ -17,6 +17,7 @@ from dsen2_tpu.models import s2net as js2net
 from dsen2_tpu_torch.core import device
 from dsen2_tpu_torch.core.config import ModelConfig
 from dsen2_tpu_torch.models import s2net
+from dsen2_tpu_torch.ops import head_tail
 from dsen2_tpu_torch.ops.conv import conv3x3
 from dsen2_tpu_torch.weights import params_to_torch
 
@@ -370,7 +371,10 @@ def test_s2net_grads_with_kept_planes_equal_planes_made_again(precision, remat, 
         s2net.apply(params_to_torch(case[1], "cpu"), [torch.from_numpy(x) for x in case[2]],
                     cfg, precision=precision)
     assert kept() == before
-    monkeypatch.setattr(s2net, "conv3x3", lambda x, w, b, p: _PlanesMadeAgain.apply(x, w, b, p))
+    # The blocks' convs are s2net's, the head's and the tail's head_tail's.
+    for module in (s2net, head_tail):
+        monkeypatch.setattr(module, "conv3x3",
+                            lambda x, w, b, p: _PlanesMadeAgain.apply(x, w, b, p))
     want = _port_net(*case, s2net.apply, precision=precision, remat=remat)
     assert kept() == before
     for a, b in zip(got, want):

@@ -772,3 +772,211 @@ def test_train_step_counts_plane_passes_and_kept_planes(dev):
     with torch.no_grad():
         s2net.apply(params, inputs, cfg, precision="high")
     assert counts() == (after[0] + 28, after[1])
+
+
+# DSen2's head and tail kernels (ops/head_tail.py). Each against the same
+# plane products in float64 within chip_smoke.PLANE_TOL x max|ref|: the
+# products of bf16 values are exact, only the f32 sums' order differs.
+def _edge_ref(x, w, b, passes):
+    """conv3x3(x, w) of the class's planes in float64, + b."""
+    import torch.nn.functional as F
+
+    xp = resblock_chain.split_planes(x, passes).double()
+    wp = resblock_chain.split_planes(w, passes).double()
+
+    def conv(a, k):
+        return F.conv2d(a.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+
+    y = conv(xp[0], wp[0])
+    if passes == 3:
+        y = y + conv(xp[1], wp[0]) + conv(xp[0], wp[1])
+    return y + b.double()
+
+
+def _edge_case(dev, shape, cin, f, cout, seed):
+    """The net's inputs (channels cin) of [B, H, W], head and tail weights,
+    and an f32 x of F channels, drawn at He-like scales."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    inputs = [torch.rand((*shape, c), generator=gen, device=dev) for c in cin]
+    hw = torch.randn((3, 3, sum(cin), f), generator=gen, device=dev) * (9 * sum(cin)) ** -0.5
+    hb = torch.randn((f,), generator=gen, device=dev) * 0.1
+    tw = torch.randn((3, 3, f, cout), generator=gen, device=dev) * (9 * f) ** -0.5
+    tb = torch.randn((cout,), generator=gen, device=dev) * 0.1
+    x = torch.randn((*shape, f), generator=gen, device=dev)
+    return inputs, hw, hb, tw, tb, x
+
+
+_EDGE_SHAPES = {"2x": ((64, 128, 128), (4, 6), 6), "6x": ((64, 192, 192), (4, 6, 2), 2),
+                "ragged": ((3, 37, 53), (4, 6), 6)}
+
+
+@pytest.mark.parametrize("case", list(_EDGE_SHAPES))
+@pytest.mark.parametrize("f", [128, 256])
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_head_kernel_matches_the_plane_products(dev, case, f, precision):
+    from chip_smoke import PLANE_TOL
+    from dsen2_tpu_torch.ops import head_tail
+
+    shape, cin, cout = _EDGE_SHAPES[case]
+    inputs, hw, hb, _, _, _ = _edge_case(dev, shape, cin, f, cout, seed=7)
+    passes = 3 if precision == "high" else 1
+    x, planes = head_tail.head(inputs, hw, hb, precision, planes=True)
+    torch.cuda.synchronize()
+    ref = _edge_ref(torch.cat(inputs, dim=-1), hw, hb, passes).clamp_min(0)
+    assert x.shape == (*shape, f) and x.dtype == torch.float32
+    assert (x.double() - ref).abs().max().item() <= PLANE_TOL * ref.abs().max().item()
+    # The planes are split_planes of x, bit for bit.
+    want = resblock_chain.split_planes(x, passes)
+    assert planes.shape == want.shape
+    assert torch.equal(planes.view(torch.int16), want.view(torch.int16))
+    del ref, want
+    again, none = head_tail.head(inputs, hw, hb, precision)
+    assert none is None and torch.equal(again, x)
+
+
+@pytest.mark.parametrize("case", list(_EDGE_SHAPES))
+@pytest.mark.parametrize("f", [128, 256])
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_tail_kernel_matches_the_plane_products(dev, case, f, precision):
+    from chip_smoke import PLANE_TOL
+    from dsen2_tpu_torch.ops import head_tail
+
+    shape, cin, cout = _EDGE_SHAPES[case]
+    inputs, _, _, tw, tb, x = _edge_case(dev, shape, cin, f, cout, seed=8)
+    passes = 3 if precision == "high" else 1
+    got = head_tail.tail(x, tw, tb, inputs[-1], precision)
+    torch.cuda.synchronize()
+    ref = _edge_ref(x, tw, tb, passes) + inputs[-1].double()
+    assert got.shape == (*shape, cout) and got.dtype == torch.float32
+    assert (got.double() - ref).abs().max().item() <= PLANE_TOL * ref.abs().max().item()
+    assert torch.equal(head_tail.tail(x, tw, tb, inputs[-1], precision), got)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_head_and_tail_give_a_patch_the_same_bits_alone_and_in_a_batch(dev, precision):
+    from dsen2_tpu_torch.ops import head_tail
+
+    inputs, hw, hb, tw, tb, x = _edge_case(dev, (64, 128, 128), (4, 6), 128, 6, seed=9)
+    xs, planes = head_tail.head(inputs, hw, hb, precision, planes=True)
+    ys = head_tail.tail(x, tw, tb, inputs[-1], precision)
+    for i in (0, 37, 63):
+        one, one_planes = head_tail.head([t[i : i + 1] for t in inputs], hw, hb, precision,
+                                         planes=True)
+        assert torch.equal(one[0], xs[i])
+        assert torch.equal(one_planes[:, 0].view(torch.int16), planes[:, i].view(torch.int16))
+        y = head_tail.tail(x[i : i + 1].contiguous(), tw, tb, inputs[-1][i : i + 1], precision)
+        assert torch.equal(y[0], ys[i])
+
+
+@pytest.mark.parametrize("bad", ["cin", "cout", "strided_x", "misaligned_x", "features",
+                                 "head_64", "tail_64", "bf16_input"])
+def test_head_and_tail_raise_on_what_the_kernels_cannot_take(dev, bad):
+    from dsen2_tpu_torch.ops import head_tail
+
+    cin = (4, 6, 8) if bad == "cin" else (4, 6)
+    inputs, hw, hb, tw, tb, x = _edge_case(dev, (2, 16, 24), cin, 128, 9 if bad == "cout" else 6,
+                                           seed=10)
+    with pytest.raises(ValueError):
+        if bad == "cin":
+            head_tail.head(inputs, hw, hb, "high")
+        elif bad == "cout":
+            head_tail.tail(x, tw, tb, torch.zeros((2, 16, 24, 9), device=dev), "high")
+        elif bad == "strided_x":
+            head_tail.tail(x.transpose(1, 2), tw, tb, inputs[-1].transpose(1, 2), "high")
+        elif bad == "misaligned_x":
+            buf = torch.zeros(x.numel() + 4, device=dev)
+            head_tail.tail(buf[1 : 1 + x.numel()].view(x.shape), tw, tb, inputs[-1], "high")
+        elif bad == "features":
+            head_tail.head(inputs, hw[..., :96], hb[:96], "high")
+        elif bad == "head_64":
+            head_tail.head(inputs, hw[..., :64], hb[:64], "high")
+        elif bad == "tail_64":
+            head_tail.tail(x[..., :64].contiguous(), tw[:, :, :64], tb, inputs[-1], "high")
+        else:
+            head_tail.head([inputs[0].to(torch.bfloat16), inputs[1]], hw, hb, "high")
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_head_and_tail_read_strided_inputs_as_their_contiguous_copies(dev, precision):
+    """The upsampled inputs arrive as permuted views (ops/resize.py's einsum
+    output): the kernels read them in place, bit-equal to contiguous copies."""
+    from dsen2_tpu_torch.ops import head_tail
+    from dsen2_tpu_torch.ops.resize import upsample_patches
+
+    inputs, hw, hb, tw, tb, x = _edge_case(dev, (8, 64, 64), (4, 6), 128, 6, seed=13)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    up = upsample_patches(torch.rand((8, 32, 32, 6), generator=gen, device=dev), (64, 64))
+    assert not up.is_contiguous()
+    strided = [inputs[0][:, :, :, :], up]
+    dense = [t.contiguous() for t in strided]
+    got, got_planes = head_tail.head(strided, hw, hb, precision, planes=True)
+    want, want_planes = head_tail.head(dense, hw, hb, precision, planes=True)
+    assert torch.equal(got, want)
+    assert torch.equal(got_planes.view(torch.int16), want_planes.view(torch.int16))
+    assert torch.equal(head_tail.tail(x, tw, tb, up, precision),
+                       head_tail.tail(x, tw, tb, up.contiguous(), precision))
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_chain_takes_the_heads_planes_bit_equal(dev, precision):
+    """B1 on the head's planes (no split_kernel) gives the bits it gives on
+    its own split of the same x."""
+    from dsen2_tpu_torch.ops import head_tail
+
+    inputs, hw, hb, _, _, _ = _edge_case(dev, (3, 40, 56), (4, 6), 128, 6, seed=11)
+    x, planes = head_tail.head(inputs, hw, hb, precision, planes=True)
+    _, w1, b1, w2, b2 = _block_args(dev, (3, 40, 56, 128), 2, torch.float32, seed=12)
+    passes = 3 if precision == "high" else 1
+    want = resblock_chain.fused_resblock_chain(x, w1, b1, w2, b2, passes=passes)
+    got = resblock_chain.fused_resblock_chain(x, w1, b1, w2, b2, passes=passes, planes=planes)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("layers,h", [(2, 32), (3, 36)])
+def test_s2net_counts_one_head_and_one_tail_a_batch(dev, precision, layers, h):
+    """The kernel route launches the head and the tail once a call, on B1's
+    route (2 blocks) and on B2's ("default", 3 blocks), and no plane pass;
+    "highest" launches neither."""
+    cfg = ModelConfig(in_channels=(4, 6), num_layers=layers, feature_size=128)
+    params = params_to_torch(s2net.init_params(torch.Generator().manual_seed(3), cfg), dev)
+    rng = np.random.default_rng(4)
+    xs = [torch.as_tensor(rng.random((2, h, 20, c), np.float32), device=dev)
+          for c in cfg.in_channels]
+
+    def counts():
+        c = profiling.counters()
+        return tuple(c.get(k, 0) for k in ("s2net.heads", "s2net.tails", "conv.plane_passes"))
+
+    before = counts()
+    s2net.apply(params, xs, cfg, precision=precision, use_kernels=None)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 0)
+    before = counts()
+    s2net.apply(params, xs, cfg, precision="highest", use_kernels=None)
+    assert counts()[:2] == before[:2]
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_s2net_keeps_the_class_conv_head_and_tail_at_64_features(dev, precision):
+    """At a width the head and tail kernels do not take (64 features), the
+    blocks run on B1 and the head and tail on the class conv: no head or
+    tail launch, the class conv's plane passes instead."""
+    cfg = ModelConfig(in_channels=(4, 6), num_layers=2, feature_size=64)
+    params = params_to_torch(s2net.init_params(torch.Generator().manual_seed(5), cfg), dev)
+    rng = np.random.default_rng(6)
+    xs = [torch.as_tensor(rng.random((2, 32, 20, c), np.float32), device=dev)
+          for c in cfg.in_channels]
+
+    def counts():
+        c = profiling.counters()
+        return tuple(c.get(k, 0) for k in ("s2net.heads", "s2net.tails", "conv.plane_passes",
+                                           "b1.tiles"))
+
+    before = counts()
+    out = s2net.apply(params, xs, cfg, precision=precision, use_kernels=None)
+    torch.cuda.synchronize()
+    after = counts()
+    assert out.shape == (2, 32, 20, cfg.out_channels) and bool(torch.isfinite(out).all())
+    assert after[:2] == before[:2]
+    assert after[2] > before[2] and after[3] > before[3]

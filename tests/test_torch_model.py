@@ -15,7 +15,7 @@ from dsen2_tpu.core.config import ModelConfig as JModelConfig
 from dsen2_tpu.models import s2net as js2net
 from dsen2_tpu_torch.core.config import ModelConfig
 from dsen2_tpu_torch.models import s2net
-from dsen2_tpu_torch.ops import resblock, resblock_chain
+from dsen2_tpu_torch.ops import head_tail, resblock, resblock_chain
 from dsen2_tpu_torch.weights import params_to_torch
 
 
@@ -62,13 +62,35 @@ def test_rejects_unknown_precision(rng):
 
 
 @pytest.fixture
-def launches(monkeypatch):
-    """Replace the CUDA launcher with a recorder, so a call on a non-CPU
-    ("meta") tensor shows which kernel entry the routing reached: one entry
-    per residual block, with its passes."""
+def edge_launches(monkeypatch):
+    """Replace the head and tail kernels' launchers with recorders: one
+    ("head", passes, planes asked) or ("tail", passes) entry per launch."""
     calls = []
 
-    def fake(x, w1, b1, w2, b2, scale, passes):
+    def fake_head(inputs, w, b, passes, planes):
+        calls.append(("head", passes, planes))
+        x = torch.empty((*inputs[0].shape[:3], w.shape[-1]), device=inputs[0].device)
+        return x, (torch.empty((2 if passes == 3 else 1, *x.shape), dtype=torch.bfloat16,
+                               device=x.device) if planes else None)
+
+    def fake_tail(x, w, b, residual, passes):
+        calls.append(("tail", passes))
+        return torch.empty_like(residual)
+
+    monkeypatch.setattr(head_tail, "launch_head", fake_head)
+    monkeypatch.setattr(head_tail, "launch_tail", fake_tail)
+    return calls
+
+
+@pytest.fixture
+def launches(monkeypatch, edge_launches):
+    """Replace the CUDA launchers with recorders, so a call on a non-CPU
+    ("meta") tensor shows which kernel entry the routing reached: one entry
+    per residual block, with its passes (the head's and tail's in
+    edge_launches)."""
+    calls = []
+
+    def fake(x, w1, b1, w2, b2, scale, passes, planes=None):
         calls.extend([passes] * w1.shape[0])
         return torch.empty_like(x)
 
@@ -117,10 +139,51 @@ def test_gpu_highest_warns_and_runs_plain_convs(launches):
     assert launches == []
 
 
-def test_use_kernels_false_runs_plain_convs_on_gpu(launches):
+def test_use_kernels_false_runs_plain_convs_on_gpu(launches, edge_launches):
     cfg = ModelConfig(in_channels=(4, 6), num_layers=2, feature_size=32)
     _meta_apply(cfg, 16, "high", use_kernels=False)
-    assert launches == []
+    assert launches == [] and edge_launches == []
+
+
+@pytest.mark.parametrize("layers,h", [(2, 16), (3, 13), (6, 132)])
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_gpu_kernel_route_runs_the_head_and_tail_kernels(launches, edge_launches, layers, h,
+                                                         precision):
+    """On the kernel route with f32 activations one head and one tail launch
+    run per call; the head writes B1's planes where B1 runs the blocks, and
+    none on B2's route."""
+    cfg = ModelConfig(in_channels=(4, 6, 2), num_layers=layers, feature_size=128)
+    out = _meta_apply(cfg, h, precision)
+    assert out.shape == (2, h, 12, cfg.out_channels)
+    passes = 3 if precision == "high" else 1
+    chain = precision == "high" or (layers % 2 == 0 and h % 8 == 0)
+    assert edge_launches == [("head", passes, chain), ("tail", passes)]
+
+
+@pytest.mark.parametrize("features", [32, 64])
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_gpu_kernel_route_keeps_the_class_conv_head_and_tail_at_other_widths(
+        launches, edge_launches, features, precision):
+    """The head and tail kernels take 128 and 256 features; at other widths
+    the blocks still run on the kernels and the head and tail on the class
+    conv."""
+    cfg = ModelConfig(in_channels=(4, 6), num_layers=2, feature_size=features)
+    out = _meta_apply(cfg, 16, precision)
+    assert out.shape == (2, 16, 12, cfg.out_channels)
+    assert edge_launches == [] and launches == [3 if precision == "high" else 1] * 2
+
+
+def test_gpu_highest_and_bf16_keep_the_class_conv_head_and_tail(launches, edge_launches):
+    """"highest" and bf16 activations take no head or tail kernel."""
+    cfg = ModelConfig(in_channels=(4, 6), num_layers=2, feature_size=128)
+    with pytest.warns(UserWarning, match="no true-f32 path"):
+        _meta_apply(cfg, 16, "highest", use_kernels=True)
+    params = {top: {k: torch.as_tensor(v).to("meta", torch.bfloat16) for k, v in sub.items()}
+              for top, sub in s2net.init_params(torch.Generator(), cfg).items()}
+    xs = [torch.empty((2, 16, 12, c), device="meta", dtype=torch.bfloat16)
+          for c in cfg.in_channels]
+    s2net.apply(params, xs, cfg, precision="default", use_kernels=True)
+    assert edge_launches == [] and launches == [1, 1]
 
 
 def test_cpu_auto_runs_plain_version_without_warning(rng):
