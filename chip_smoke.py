@@ -6,7 +6,7 @@
 Phases, each printing its lines and its seconds:
 
 1. environment: the card, its power limit, torch and CUDA, and the build of
-   the CUDA kernels from dsen2_tpu_torch/csrc/ into build/kernels/, with
+   each CUDA library from dsen2_tpu_torch/csrc/ into build/kernels/, with
    ptxas's registers and spills for each kernel (any spill fails the run);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes: error against a stated limit, kernel / plain / library
@@ -78,11 +78,19 @@ Phases, each printing its lines and its seconds:
    64) on that shape through rcan_body against rcan_body_plain at "high"
    and "default"; its launches, by the program's counters, must follow its
    groups and blocks;
-9. one {"kernels": [...]} JSON line, B1's, B2's, the head's and the tail's
+9. HAT (ops/window_attention.py, models/hat.py): the window-attention
+   kernel (self-attention, shifted, overlapping) at the hat.roi cell's
+   batch shape [64, 128, 128, 180], 6 heads, in both classes against its
+   plain version in float64, with times, bounds, shares, the plain
+   version's time and a library yardstick; HAT at published widths on that
+   batch at "high" and "default" (cold and warm time, peak memory, 42
+   attention launches a batch by the counter hat.attn), its first 2 patches
+   against tests/hat_reference.py;
+10. one {"kernels": [...]} JSON line, B1's, B2's, the head's and the tail's
    launches counted over phases 3, 4, 6 and 7, the plane pass's over phases
    3 to 7 (phase 5's training), RCAN's three kernels' over phase 8's body
-   runs;
-10. the card's name and power limit, then {"ok": true, "device": {...}}.
+   runs, HAT's attention's over phase 9's;
+11. the card's name and power limit, then {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line. Without a CUDA device,
 or without the dsen2_tpu_torch package beside it, the script fails.
@@ -575,6 +583,171 @@ def phase_rcan(torch):
     del params, f0
     torch.cuda.empty_cache()
     return results, launches
+
+
+HAT_SHAPE = (64, 128, 128, 180)  # the hat.roi cell's batch of patches, HAT's width
+HAT_HEADS = 6
+# (case, attention geometry): self-attention unshifted and shifted by M/2,
+# and the overlapping cross-attention (M_o = 24).
+HAT_CASES = (("self", dict(shift=0)), ("shifted", dict(shift=8)), ("overlap", dict(overlap=24)))
+
+
+def hat_work(case, shape, passes, heads=HAT_HEADS):
+    """(flop, bytes) of one window-attention launch on `shape` ([B, H, W, C]
+    of its output): q k^T and p v, 4 N_k C flop a query pixel (d = C /
+    heads, not padded), x3 at bf16x3; q, k and v read once and the output
+    written once at the class's operand width, 4 B an element at bf16x3 (f32,
+    or two bf16 planes) and 2 B at one pass (perfbench/counts_hat counts the
+    same)."""
+    b, h, w, c = shape
+    keys = 24 * 24 if case == "overlap" else 16 * 16
+    px = b * h * w
+    return 4 * keys * c * px * passes, 4 * c * px * (4 if passes == 3 else 2)
+
+
+def phase_hat(torch):
+    """HAT (ops/window_attention.py, models/hat.py): the window-attention
+    kernel in each geometry (HAT_CASES) at HAT_SHAPE, 6 heads, in both
+    classes, against its plain version in float64 (KERNEL_TOL), with times,
+    bounds and shares, the plain version at the class and a library
+    yardstick (PyTorch's scaled_dot_product_attention on the windows with
+    the bias as its mask, bf16, which the port never calls); then HAT at
+    published widths through hat.apply on a batch of HAT_SHAPE at "high" and
+    "default": cold and warm seconds, peak memory, 42 kernel launches a
+    batch (the counter hat.attn), and its first 2 patches against the plain
+    reference tests/hat_reference.py (f32, TF32 off) within E2E_TOL. Returns
+    ({(case, precision): result}, {"hat.attn.<case>": the net runs' launches
+    in that geometry})."""
+    from dsen2_tpu_torch.models import hat
+    from dsen2_tpu_torch.ops import window_attention as wa
+    from dsen2_tpu_torch.utils import profiling
+    from dsen2_tpu_torch.weights import params_to_torch
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, h, w, c = HAT_SHAPE
+    d = c // HAT_HEADS
+    qkv = torch.randn((b, h, w, 3 * c), generator=gen, device=dev)
+    results = {}
+    for case, geometry in HAT_CASES:
+        entries = ((16 + 24 - 1) if case == "overlap" else 31) ** 2
+        table = torch.randn((entries, HAT_HEADS), generator=gen, device=dev) * 0.5
+        want64 = wa.window_attention_plain(qkv.double(), table.double(), heads=HAT_HEADS,
+                                           window=16, **geometry)
+        top = want64.abs().max().item()
+        for precision, passes in (("high", 3), ("default", 1)):
+            def kernel():
+                return wa.window_attention(qkv, table, heads=HAT_HEADS, window=16,
+                                           passes=passes, **geometry)
+
+            got = kernel()
+            torch.cuda.synchronize()
+            err = (got.double() - want64).abs().max().item()
+            limit = KERNEL_TOL[("float32", passes)] * top
+            ok = bool(torch.isfinite(got).all()) and err <= limit
+            ms = time_ms(torch, kernel, iters=20)
+            plain_ms = time_ms(torch, lambda: wa.window_attention_plain(
+                qkv, table, heads=HAT_HEADS, window=16, passes=passes, **geometry), iters=1)
+            library_ms = _sdpa_ms(torch, F, wa, qkv, table, geometry)
+            flop, nbytes = hat_work(case, HAT_SHAPE, passes)
+            bms, by = roofline_ms(flop, nbytes)
+            print(f"hat attention {case} {list(HAT_SHAPE)} {precision}: max_abs_err={err:.3e} "
+                  f"(limit {limit:.3e}, max|float64| {top:.3f}) ms={ms:.4f} plain_ms="
+                  f"{plain_ms:.4f} library_ms={library_ms:.4f} (sdpa, bf16, bias as mask) "
+                  f"bound_ms={bms:.4f} ({by}: {flop:.3e} flop, {nbytes:.4e} B) "
+                  f"{100 * bms / ms:.1f} % of the bound -> {'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"hat attention {case} {precision} disagrees with float64")
+            results[(case, precision)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                              library_ms=library_ms, bound_ms=bms, bound_by=by)
+            del got
+        del want64
+        torch.cuda.empty_cache()
+    del qkv
+    torch.cuda.empty_cache()
+
+    # HAT at published widths on one batch, as the hat.roi cell's batches run.
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import hat_reference as ref
+
+    cfg = hat.hat_2x()
+    params = params_to_torch(hat.init_params(torch.Generator().manual_seed(3), cfg), dev)
+    xs = [torch.rand((b, h, w, k), generator=gen, device=dev) * 3 for k in cfg.in_channels]
+    with ref.no_tf32(), torch.no_grad():
+        want = ref.forward(params, [x[:2].permute(0, 3, 1, 2) for x in xs], heads=cfg.heads,
+                           window=cfg.window, overlap=cfg.overlap_window).permute(0, 2, 3, 1)
+    # The net's launches by geometry, tallied around the kernel's wrapper
+    # for these runs alone; each run's total is also read from hat.attn.
+    tally = {case: 0 for case, _ in HAT_CASES}
+    attend = hat.window_attention
+
+    def tallied(qkv, table, *, shift=0, overlap=0, **kw):
+        tally["overlap" if overlap else "shifted" if shift else "self"] += 1
+        return attend(qkv, table, shift=shift, overlap=overlap, **kw)
+
+    hat.window_attention = tallied
+    runs = 0
+    for precision in ("high", "default"):
+        torch.cuda.reset_peak_memory_stats()
+        n0 = profiling.counters().get("hat.attn", 0)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            got = hat.apply(params, xs, cfg, precision=precision, use_kernels=None)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            n_attn = profiling.counters().get("hat.attn", 0) - n0
+            ms = time_ms(torch, lambda: hat.apply(params, xs, cfg, precision=precision,
+                                                  use_kernels=None), iters=2)
+        runs += 1 + 1 + 2  # the cold run, time_ms's warm-up and its two runs
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        err = (got[:2] - want).abs().max().item() / want.abs().max().item()
+        print(f"hat {cfg.groups}x{cfg.blocks}x{cfg.embed_dim} {list(HAT_SHAPE[:3])} {precision}: "
+              f"cold {cold:.3f} s, warm {ms:.1f} ms a batch, peak {peak:.3f} GiB, "
+              f"{n_attn} attention launches; max|hat - reference| / max|reference| on 2 "
+              f"patches {err:.3e} (limit {E2E_TOL[precision]:.0e})", flush=True)
+        check(n_attn == cfg.groups * (cfg.blocks + 1), f"hat: {n_attn} attention launches")
+        check(bool(torch.isfinite(got).all()) and err <= E2E_TOL[precision],
+              f"hat {precision} strays from the reference")
+        del got
+    hat.window_attention = attend
+    half = cfg.groups * cfg.blocks // 2
+    print(f"hat net launches over {runs} runs of a batch: {tally}", flush=True)
+    check(tally == {"self": runs * half, "shifted": runs * half, "overlap": runs * cfg.groups},
+          f"hat: {tally} attention launches over {runs} runs")
+    launches = {f"hat.attn.{case}": n for case, n in tally.items()}
+    del params, xs, want
+    torch.cuda.empty_cache()
+    return results, launches
+
+
+def _sdpa_ms(torch, F, wa, qkv, table, geometry):
+    """PyTorch's scaled_dot_product_attention on one head-batch of windows,
+    bf16, the bias (and mask) as a float mask, d padded to 32: the time of
+    the same attention in a library call, scaled to all windows. The port
+    never calls it."""
+    b, h, w, c3 = qkv.shape
+    c, overlap = c3 // 3, geometry.get("overlap", 0)
+    sub = qkv[: max(1, b // 8)]
+    q = wa._windows(sub[..., :c], 16)
+    k = (wa._key_windows(sub[..., c:2 * c], 16, overlap) if overlap
+         else wa._windows(sub[..., c:2 * c], 16))
+    v = (wa._key_windows(sub[..., 2 * c:], 16, overlap) if overlap
+         else wa._windows(sub[..., 2 * c:], 16))
+
+    def heads(t):
+        t = t.reshape(t.shape[0], t.shape[1], HAT_HEADS, -1).transpose(1, 2)
+        return F.pad(t, (0, 32 - t.shape[-1])).bfloat16().contiguous()
+
+    q, k, v = heads(q), heads(k), heads(v)
+    bias = table[wa.relative_index(16, overlap).to(qkv.device)].permute(2, 0, 1)
+    bias = bias[None].expand(q.shape[0], -1, -1, -1).bfloat16()
+    try:
+        ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
+                     iters=5)
+    except RuntimeError as e:  # a yardstick only
+        print(f"hat: sdpa yardstick failed: {e}", flush=True)
+        return float("nan")
+    return ms * b / sub.shape[0]
 
 
 def synthetic_scene(seed: int, h10: int):
@@ -1809,15 +1982,16 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)}; count {torch.cuda.device_count()}")
     print(f"nvidia-smi: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
-    _build.load_library()
-    log = _build.build_log
-    print(f"kernel build: {log['seconds']:.2f} s -> {os.path.basename(log['path'])}")
-    for line in log["ptxas"]:
-        print(f"  ptxas: {line}")
-    check(any("bytes spill" in line for line in log["ptxas"]),
-          "no ptxas report for the kernels' library")
-    spills = [line for line in log["ptxas"] if re.search(r"\b[1-9]\d* bytes spill", line)]
-    check(not spills, f"ptxas reports register spills: {spills}")
+    for name in _build.library_names():
+        _build.build(name)
+        log = _build.build_log[name]
+        print(f"kernel build: {log['seconds']:.2f} s -> {os.path.basename(log['path'])}")
+        for line in log["ptxas"]:
+            print(f"  ptxas: {line}")
+        check(any("bytes spill" in line for line in log["ptxas"]),
+              f"no ptxas report for the {name} library")
+        spills = [line for line in log["ptxas"] if re.search(r"\b[1-9]\d* bytes spill", line)]
+        check(not spills, f"ptxas reports register spills in {name}: {spills}")
     print(f"phase 1: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
@@ -1864,6 +2038,10 @@ def main() -> int:
     rcan_res, rcan_launches_n = phase_rcan(torch)
     print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = time.perf_counter()
+    hat_res, hat_launches = phase_hat(torch)
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+
     main_b1 = res[("chain", (64, 128, 128, 128), "float32", 3)]
     main_b2 = res[("block", (64, 132, 132, 128), "float32", 1)]
     kernels = [
@@ -1901,6 +2079,14 @@ def main() -> int:
                             replaces="none: the JAX package's XLA convs",
                             launches=launches[counter],
                             **edges[(kind, "2x", "high")]))
+    # HAT's window attention: "high", the hat.roi cell's class, at HAT_SHAPE,
+    # each geometry; launches in phase 9's runs of the net.
+    for case, _ in HAT_CASES:
+        kernels.append(dict(name=f"dsen2_window_attention ({case})", route="cuda",
+                            source="dsen2_tpu_torch/csrc/window_attention.cu",
+                            replaces="none: the JAX package has no attention",
+                            launches=hat_launches[f"hat.attn.{case}"],
+                            **hat_res[(case, "high")]))
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi()}")

@@ -6,9 +6,9 @@ The counterpart of dsen2_tpu/infer/api.py. One pipeline serves both heads:
     LR->HR upsample (two f32 matmuls) -> the net -> border crop ->
     last-write-wins mosaic
 
-The net is s2net (DSen2, VDSen2) or, for an RCANConfig, RCAN (models/rcan);
-every route (one-shot, banded, sharded, ensemble) runs either through
-sr_tile.
+The net is s2net (DSen2, VDSen2) or, for an RCANConfig, RCAN (models/rcan),
+or for a HATConfig, HAT (models/hat); every route (one-shot, banded,
+sharded, ensemble) runs any of them through sr_tile.
 
 The schedule (patch starts, output positions, chunks) is host numpy, as in
 the JAX package, and every route takes it from infer/engine.py's TilePlan
@@ -32,7 +32,7 @@ import torch
 from dsen2_tpu_torch.core.bands import SCALE
 from dsen2_tpu_torch.core.config import InferConfig, ModelConfig, dsen2_2x, dsen2_6x
 from dsen2_tpu_torch.core.device import resolve_device, upload
-from dsen2_tpu_torch.models import rcan, s2net
+from dsen2_tpu_torch.models import hat, rcan, s2net
 from dsen2_tpu_torch.ops.resize import upsample_patches
 from dsen2_tpu_torch.ops.tiling import (
     PatchGrid, gather_patches, pad_symmetric, write_interiors,
@@ -131,9 +131,11 @@ def _host_view(t: torch.Tensor, out_dtype: np.dtype) -> np.ndarray:
 
 
 def net_apply(cfg):
-    """The forward pass of cfg's net: rcan.apply for an RCANConfig, else
-    s2net.apply."""
-    return rcan.apply if isinstance(cfg, rcan.RCANConfig) else s2net.apply
+    """The forward pass of cfg's net: rcan.apply for an RCANConfig,
+    hat.apply for a HATConfig, else s2net.apply."""
+    if isinstance(cfg, rcan.RCANConfig):
+        return rcan.apply
+    return hat.apply if isinstance(cfg, hat.HATConfig) else s2net.apply
 
 
 def sr_tile(
@@ -431,7 +433,7 @@ def dsen2_20(
     mesh=None,
     ensemble: bool = False,
     device: Device = None,
-    model: Optional[rcan.RCANConfig] = None,
+    model: Optional[Union[rcan.RCANConfig, hat.HATConfig]] = None,
 ) -> np.ndarray:
     """Super-resolve the six 20 m bands to 10 m.
 
@@ -443,14 +445,17 @@ def dsen2_20(
 
     model=None runs DSen2 (VDSen2 with deep=True); an RCANConfig
     (models.rcan.rcan_2x()) runs RCAN instead, with `params` in
-    models.rcan.init_params's layout (there are no shipped RCAN weights;
-    `deep` is then not read)."""
+    models.rcan.init_params's layout, and a HATConfig (models.hat.hat_2x())
+    HAT, with `params` in models.hat.init_params's layout (there are no
+    shipped RCAN or HAT weights; `deep` is then not read). HAT's window must
+    divide infer_cfg.patch_size."""
     cfg = dsen2_2x(deep) if model is None else model
     infer_cfg = infer_cfg or InferConfig(patch_size=128, border=8)
     if params is None:
         if model is not None:
-            raise ValueError("RCAN has no shipped weights: pass params= "
-                             "(models.rcan.init_params's layout)")
+            raise ValueError("RCAN and HAT have no shipped weights: pass params= "
+                             "(models.rcan.init_params's or models.hat.init_params's "
+                             "layout)")
         params = default_params(cfg, run_60=False, deep=deep)
     run = _run_ensembled if ensemble else _run
     return run([d10, d20], 2, cfg, params, infer_cfg, device, mesh=mesh)

@@ -980,3 +980,123 @@ def test_s2net_keeps_the_class_conv_head_and_tail_at_64_features(dev, precision)
     assert out.shape == (2, 32, 20, cfg.out_channels) and bool(torch.isfinite(out).all())
     assert after[:2] == before[:2]
     assert after[2] > before[2] and after[3] > before[3]
+
+
+# -- HAT's window attention (ops/window_attention.py, csrc/window_attention.cu)
+
+_ATTN_GEOMETRY = {"self": dict(shift=0), "shifted": dict(shift=8), "overlap": dict(overlap=24)}
+
+
+def _attn_inputs(dev, shape, heads, case, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, h, w, c = shape
+    qkv = torch.randn((b, h, w, 3 * c), generator=gen, device=dev)
+    entries = (16 + 24 - 1) ** 2 if case == "overlap" else 31 ** 2
+    table = torch.randn((entries, heads), generator=gen, device=dev) * 0.5
+    return qkv, table
+
+
+@pytest.mark.parametrize("case", list(_ATTN_GEOMETRY))
+@pytest.mark.parametrize("passes", [3, 1])
+def test_window_attention_kernel_matches_float64_at_hat_shape(dev, case, passes):
+    """The kernel at the hat.roi cell's batch shape, 6 heads (d = 30), held
+    to the plain version in float64 (TOL: bf16x3 keeps about 16 bits of
+    each operand, one pass 8)."""
+    from dsen2_tpu_torch.ops import window_attention as wa
+
+    qkv, table = _attn_inputs(dev, (64, 128, 128, 180), 6, case)
+    got = wa.window_attention(qkv, table, heads=6, window=16, passes=passes,
+                              **_ATTN_GEOMETRY[case])
+    want = wa.window_attention_plain(qkv.double(), table.double(), heads=6, window=16,
+                                     **_ATTN_GEOMETRY[case])
+    err = (got.double() - want).abs().max().item()
+    assert err <= TOL[(torch.float32, passes)] * want.abs().max().item()
+
+
+@pytest.mark.parametrize("case", list(_ATTN_GEOMETRY))
+@pytest.mark.parametrize("shape,heads", [((2, 48, 32, 36), 2), ((1, 16, 16, 32), 1),
+                                         ((3, 32, 64, 60), 6)])
+def test_window_attention_kernel_other_shapes(dev, case, shape, heads):
+    """Images of 1 window, of unequal sides, and head sizes 18, 32 and 10."""
+    from dsen2_tpu_torch.ops import window_attention as wa
+
+    qkv, table = _attn_inputs(dev, shape, heads, case, seed=1)
+    for passes in (3, 1):
+        got = wa.window_attention(qkv, table, heads=heads, window=16, passes=passes,
+                                  **_ATTN_GEOMETRY[case])
+        want = wa.window_attention_plain(qkv.double(), table.double(), heads=heads, window=16,
+                                         **_ATTN_GEOMETRY[case])
+        err = (got.double() - want).abs().max().item()
+        assert err <= TOL[(torch.float32, passes)] * want.abs().max().item(), passes
+
+
+def test_window_attention_kernel_is_deterministic_and_counts(dev):
+    from dsen2_tpu_torch.ops import window_attention as wa
+
+    qkv, table = _attn_inputs(dev, (4, 64, 64, 180), 6, "overlap", seed=2)
+    before = profiling.counters().get("hat.attn", 0)
+    a = wa.window_attention(qkv, table, heads=6, window=16, overlap=24, passes=3)
+    b = wa.window_attention(qkv, table, heads=6, window=16, overlap=24, passes=3)
+    assert torch.equal(a, b)
+    assert profiling.counters().get("hat.attn", 0) - before == 2
+
+
+@pytest.mark.parametrize("bad", ["window", "head", "dtype", "shift_overlap"])
+def test_window_attention_rejects_what_the_kernel_cannot_take(dev, bad):
+    from dsen2_tpu_torch.ops import window_attention as wa
+
+    qkv, table = _attn_inputs(dev, (1, 32, 32, 180), 6, "self")
+    kw = dict(heads=6, window=16, passes=3)
+    if bad == "window":
+        kw["window"] = 8
+    elif bad == "head":
+        qkv, kw["heads"] = torch.zeros((1, 32, 32, 3 * 200), device=dev), 5  # d = 40
+    elif bad == "dtype":
+        qkv = qkv.double()
+    else:
+        kw.update(shift=8, overlap=24)
+    with pytest.raises(ValueError):
+        wa.window_attention(qkv, table, **kw)
+
+
+@pytest.mark.parametrize("precision,tol", [("high", 1e-4), ("default", 3e-2)])
+def test_hat_one_batch_against_the_reference(dev, precision, tol):
+    """HAT at published widths on a batch of 4 patches of 128 x 128 through
+    hat.apply (the kernel, the class convs and linears) against
+    tests/hat_reference.py in f32 with TF32 off, as a share of its largest
+    value; 42 attention launches (36 HABs and 6 OCABs)."""
+    import hat_reference as ref
+    from dsen2_tpu_torch.models import hat
+
+    cfg = hat.hat_2x()
+    params = params_to_torch(hat.init_params(torch.Generator().manual_seed(3), cfg), dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    xs = [torch.rand((4, 128, 128, k), generator=gen, device=dev) * 3 for k in cfg.in_channels]
+    before = profiling.counters().get("hat.attn", 0)
+    with torch.no_grad():
+        got = hat.apply(params, xs, cfg, precision=precision, use_kernels=None)
+        assert profiling.counters().get("hat.attn", 0) - before == 42
+        with ref.no_tf32():
+            want = ref.forward(params, [x.permute(0, 3, 1, 2) for x in xs], heads=cfg.heads,
+                               window=cfg.window, overlap=cfg.overlap_window)
+    want = want.permute(0, 2, 3, 1)
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+def test_hat_through_dsen2_20_on_card_counts_42_launches_a_batch(dev):
+    """dsen2_20 with HAT on a 240 x 240 scene: 9 patches of 128 x 128 in
+    batches of 8, so two batches and 84 attention launches."""
+    from dsen2_tpu_torch.core.config import InferConfig
+    from dsen2_tpu_torch.infer import api
+    from dsen2_tpu_torch.models import hat
+
+    cfg = hat.hat_2x()
+    params = hat.init_params(torch.Generator().manual_seed(6), cfg)
+    rng = np.random.default_rng(7)
+    d10 = (rng.random((240, 240, 4)) * 8000).astype(np.uint16)
+    d20 = (rng.random((120, 120, 6)) * 8000).astype(np.uint16)
+    icfg = InferConfig(patch_size=128, border=8, batch_size=8)
+    before = profiling.counters().get("hat.attn", 0)
+    out = api.dsen2_20(d10, d20, params=params, infer_cfg=icfg, model=cfg)
+    assert out.shape == (240, 240, 6) and np.isfinite(out).all()
+    assert profiling.counters().get("hat.attn", 0) - before == 84

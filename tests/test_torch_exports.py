@@ -71,4 +71,4 @@ def test_importing_ops_builds_no_kernel():
     from dsen2_tpu_torch.ops import _build
 
     importlib.import_module("dsen2_tpu_torch.ops")
-    assert _build._lib is None and not _build.build_log
+    assert not _build._libs and not _build.build_log
